@@ -5,13 +5,14 @@
 Phases, in order; any failure exits non-zero:
 
 0. card: name and power limit (nvidia-smi), torch and CUDA versions;
-1. build: compile every CUDA kernel of the serving path from ``src/repro_torch/csrc``
-   (one nvcc per source, started together);
+1. build: compile every CUDA kernel from ``src/repro_torch/csrc`` (one nvcc
+   per source, started together);
 2. kernels: each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and a few others, with the tolerances of the reference
+   main paths' shapes and a few others, with the tolerances of the reference
    package's kernel tests (2e-5 float32, 5e-2 bfloat16, against the plain
-   version in float32); kernel, plain, library (``scaled_dot_product_attention``,
-   timed only) and bound times at the main path's shape;
+   version in float32; the integer checksum kernels bit for bit), the flash
+   kernel's gradient under autograd, and kernel, plain, library (timed only)
+   and bound times at the main paths' shapes;
 3. serve: ``repro_torch.launch.serve`` at the full width of qwen2-0.5b with a
    snapshot, migration and restore half way; the continuation must match the
    unmigrated run bit for bit, and the launch counts must show that every
@@ -19,7 +20,17 @@ Phases, in order; any failure exits non-zero:
 4. reference: reduced qwen2-0.5b in float32, the card's path (kernels) against
    the CPU path (plain versions): equal greedy tokens, close logits;
 5. profile: device time by kernel and the device's busy share over one
-   prefill and over decode steps at the main path's shapes.
+   prefill and over decode steps at the main path's shapes;
+6. train state: the full-width qwen2-0.5b train state (params, AdamW m and v:
+   5.93 GB) after one step, fingerprinted whole on the card and held against
+   the plain version and the host's fingerprints, with the tree call timed;
+   one profiled train step; the same state saved twice with device
+   fingerprints (the second save must copy no byte) and once on the host path;
+7. train: the C/R loop through ``repro_torch.launch.train --ckpt-delta
+   --ckpt-device-fp`` at full width, as subprocesses: A uninterrupted, B cut
+   by its walltime (exit 85), C requeued on B's checkpoint; A and C must end
+   on the same loss and the same chunk hashes, and the launch counts must
+   show every attention and every save's fingerprinting on the kernels.
 
 It prints a ``kernels`` JSON line and the card's name and power limit before
 the last line, and as the last line ``{"ok": true, "device": {...}}``.
@@ -29,6 +40,8 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -39,7 +52,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense tensor-core bf16; fp32 FMA
+# dense tensor-core bf16; fp32 FMA on the CUDA cores, also the rate taken for
+# the checksum kernels' 32-bit integer operations (the guide lists no int32 rate)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "uint32": 67e12}
 TOL = {"float32": 2e-5, "bfloat16": 5e-2}
 L2_BYTES = 50 * 2**20
 
@@ -47,6 +62,11 @@ SERVE_ARGV = ["--arch", "qwen2-0.5b", "--batch", "4", "--prompt-len", "512",
               "--gen", "32", "--max-seq", "1024", "--snapshot-at", "16"]
 # 2 prefills x 24 layers; (32 + 16 + 16) decode steps x 24 layers
 EXPECTED_LAUNCHES = {"flash": 48, "flash_decode": 1536}
+
+TRAIN_STEPS = 6
+TRAIN_ARGV = ["--arch", "qwen2-0.5b", "--batch", "8", "--seq", "128",
+              "--steps", str(TRAIN_STEPS), "--ckpt-delta", "--ckpt-device-fp"]
+TRAIN_DISK_BYTES = 25e9     # three runs write ~18 GB of chunks
 
 
 def log(msg: str) -> None:
@@ -210,7 +230,86 @@ def phase_kernels() -> dict:
                                   shape=f"B{B} S{S} H{H} Hkv{Hkv} D{D} {dtn} kv_len={kv_len}")
     log(f"  flash_decode timing ({report['flash_decode']['shape']}): kernel_ms {ms:.4f} "
         f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} bound_ms {b_ms:.6f} ({b_by})")
+
+    # ---- flash under autograd: kernel forward, plain backward (training) ----
+    B, S, H, Hkv, D, dtn = 8, 128, 14, 2, 64, "bfloat16"
+    q, k, v = (_randn(s, dt[dtn], gen).requires_grad_()
+               for s in ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    go = _randn((B, S, H, D), dt[dtn], gen)
+    out = flash_attention.flash(q, k, v, causal=True)
+    grads = torch.autograd.grad(out, (q, k, v), go)
+    plain_in = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want = ref.attention(*plain_in, causal=True)
+    want_grads = torch.autograd.grad(want, plain_in, go.float())
+    torch.cuda.synchronize()
+    errs = [(a.detach().float() - b.detach()).abs().max().item() for a, b in
+            zip((out, *grads), (want, *want_grads))]
+    ok = all(e <= TOL[dtn] for e in errs) and all(bool(torch.isfinite(g).all()) for g in grads)
+    log(f"  flash gradient B{B} S{S} H{H} Hkv{Hkv} D{D} {dtn}: max_abs_err out/dq/dk/dv "
+        + "/".join(f"{e:.3g}" for e in errs) + f" (tol {TOL[dtn]}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"flash's gradient disagrees with the plain version's: {errs}")
+    report["flash"]["grad_max_abs_err"] = max(errs[1:])
+
+    report.update(_checksum_kernels(gen))
     return report
+
+
+def _checksum_kernels(gen) -> dict:
+    """chunk_fingerprints and checksum against their plain versions, bit for
+    bit; timed on the embed table's aligned body (the largest launch of a
+    qwen2-0.5b save: 519 chunks of 1 MiB)."""
+    import torch
+
+    from repro_torch.kernels import checksum as CK
+    from repro_torch.kernels import ops, ref
+
+    def words(n):
+        return torch.randint(-2**31, 2**31, (n,), generator=gen, dtype=torch.int64,
+                             device="cuda").to(torch.int32)
+
+    checked = 0
+    for cw in (1, 8, 262144):
+        for n in (0, 1, 3 * cw, 2 * cw + 5, cw + 1):
+            w = words(n)
+            for span in (w, w[1:]):                 # w[1:] starts off a 16-byte boundary
+                got = ops.chunk_fingerprints(span, chunk_words=cw)
+                if not torch.equal(got, ref.chunk_fingerprints(span, cw)):
+                    raise AssertionError(f"chunk_fingerprints differs at n={span.numel()} cw={cw}")
+                checked += 1
+    for block in (8, 2048):
+        for n in (0, 1, 7, 3000, (1 << 20) + 3):
+            w = words(n)
+            pad = (-n) % block
+            got = ops.checksum(w, block=block)
+            if not torch.equal(got, ref.checksum(torch.cat([w, w.new_zeros(pad)]))):
+                raise AssertionError(f"checksum differs at n={n} block={block}")
+            if not torch.equal(got, ops.checksum(w, block=block)):
+                raise AssertionError(f"checksum is not repeatable at n={n}")
+            checked += 1
+    torch.cuda.synchronize()
+    log(f"  chunk_fingerprints and checksum: {checked} cases equal to the plain "
+        "versions bit for bit (cw 1/8/262144, ragged tails, empty, 1 word, unaligned)")
+
+    # the embed table's aligned body: 151936 x 896 float32, 519 whole 1 MiB chunks
+    cw = 262144
+    body = torch.randn(519 * cw, generator=gen, device="cuda").view(torch.int32)
+    nchunks = body.numel() // cw
+    out = {}
+    for name, fn, plain, out_bytes in (
+            ("chunk_fingerprints", lambda w: CK.chunk_fingerprints(w, cw),
+             lambda w: ref.chunk_fingerprints(w, cw), 4 * nchunks),
+            ("checksum", lambda w: CK.checksum(w, block=2048),
+             lambda w: ref.checksum(w), 4)):
+        ms = timed_ms(fn, [(body,)])
+        plain_ms = timed_ms(plain, [(body,)], iters=3)
+        b_ms, b_by = bound(4 * body.numel() + out_bytes, 6 * body.numel(), "uint32")
+        out[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                         bound_ms=b_ms, bound_by=b_by,
+                         shape=f"{body.numel()} words (519 x 1 MiB) int32")
+        log(f"  {name} timing ({out[name]['shape']}): kernel_ms {ms:.4f} plain_ms "
+            f"{plain_ms:.4f} library_ms none bound_ms {b_ms:.5f} ({b_by})")
+    return out
 
 
 def phase_serve(ckpt_dir: str) -> dict:
@@ -326,6 +425,237 @@ def phase_reference(steps: int = 8) -> dict:
     return {"tokens_equal": same, "max_logit_err": err}
 
 
+def _work_dir() -> Path:
+    """A scratch directory for the checkpoints of phases 6 and 7, on whichever
+    of the temporary directory and the repository's ``build/`` has more free
+    space; fails clearly below TRAIN_DISK_BYTES."""
+    bases = [Path(tempfile.gettempdir()), ROOT / "build"]
+    for b in bases:
+        b.mkdir(parents=True, exist_ok=True)
+    free = {b: shutil.disk_usage(b).free for b in bases}
+    base = max(free, key=free.get)
+    log("  free disk: " + ", ".join(f"{b} {f / 1e9:.1f} GB" for b, f in free.items()))
+    if free[base] < TRAIN_DISK_BYTES:
+        raise RuntimeError(f"the train phases write ~18 GB of checkpoints; the most free "
+                           f"space is {free[base] / 1e9:.1f} GB at {base}, under "
+                           f"{TRAIN_DISK_BYTES / 1e9:.0f} GB")
+    return Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=base))
+
+
+def fp_launches_per_save(named, chunk_bytes: int) -> int:
+    """Kernel launches of one ``tree_chunk_fingerprints`` over ``named``: one
+    per leaf with a whole chunk, plus one for all the ragged tails."""
+    sizes = [x.numel() * x.element_size() for _, x in named]
+    return (sum(1 for n in sizes if n >= chunk_bytes)
+            + int(any(n % chunk_bytes for n in sizes)))
+
+
+def phase_state(work: Path) -> dict:
+    """The full-width train state on the card after one step: fingerprinted
+    whole (kernel against the plain version and the host), one profiled
+    step, and saved twice with device fingerprints and once on the host path."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.checkpoint import serialization as SER
+    from repro_torch.checkpoint.manager import CheckpointManager, CheckpointPolicy
+    from repro_torch.checkpoint.store import TieredStore
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import checksum as CK
+    from repro_torch.kernels import ops, ref
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS
+    from repro_torch.utils.tree import flatten_with_names
+
+    cfg = get_config("qwen2-0.5b")
+    oc = adamw.OptConfig(warmup_steps=10, decay_steps=TRAIN_STEPS)
+    t0 = time.perf_counter()
+    state = TS.init_train_state(cfg, oc, 0, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pipe = SyntheticTokens(cfg, 8, 128)
+    batches = [{"tokens": torch.from_numpy(pipe.batch_at(i)["tokens"]).cuda()}
+               for i in range(3)]
+    step = TS.make_train_step(cfg, oc)
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = step(state, batches[0])       # moments nonzero, kernels warm
+    torch.cuda.synchronize()
+    named = flatten_with_names(state)
+    nbytes = sum(x.numel() * x.element_size() for _, x in named)
+    log(f"  state: {len(named)} leaves, {nbytes} bytes ({nbytes / 1e9:.3f} GB), "
+        f"init {init_s:.1f}s, peak device memory of a step "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    # one step, untraced then traced: step ms and where the device time goes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = step(state, batches[1])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with prof:
+        state, _ = step(state, batches[2])
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_s = sum(r[1] for r in rows) / 1e6
+    rows.sort(key=lambda r: -r[1])
+    log(f"  train step B8 S128: wall {wall_s * 1e3:.3f} ms untraced, device kernels "
+        f"{busy_s * 1e3:.3f} ms = {100 * busy_s / wall_s:.1f}% busy")
+    for key, us, n in rows[:10]:
+        log(f"    {100 * us / 1e6 / busy_s:5.1f}%  {us / 1e3:8.4f} ms  x{n:<5d} {key[:90]}")
+
+    # the whole state through the kernel, against the plain version and the host
+    named = flatten_with_names(state)
+    cb = SER.DELTA_CHUNK_BYTES
+    cw = cb // 4
+    want_launches = fp_launches_per_save(named, cb)
+    n0 = CK.fingerprint_launches
+    fps = ops.tree_chunk_fingerprints(named, cb)
+    launches = CK.fingerprint_launches - n0
+    chunks = 0
+    for name, leaf in named:
+        plain = ref.chunk_fingerprints(ops.leaf_words(leaf), cw).cpu().numpy().view(np.uint32)
+        host = SER.fingerprint_chunks(SER.as_byte_view(SER.host_array(leaf)), cb)
+        if not (np.array_equal(fps[name], plain) and np.array_equal(fps[name], host)):
+            raise AssertionError(f"fingerprints of {name} differ from the plain version "
+                                 "or the host's")
+        chunks += len(host)
+    log(f"  whole state: {chunks} chunk fingerprints equal to the plain version on the "
+        f"card and to the host's, bit for bit; {launches} launches per tree "
+        f"(expected {want_launches})")
+    if launches != want_launches:
+        raise AssertionError(f"{launches} launches per tree, expected {want_launches}")
+
+    def tree_call():
+        ops.tree_chunk_fingerprints(named, cb)
+
+    def plain_tree():
+        for _, leaf in named:
+            ref.chunk_fingerprints(ops.leaf_words(leaf), cw).cpu()
+
+    tree = {}
+    for label, fn, iters in (("kernel", tree_call, 10), ("plain", plain_tree, 2)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        tree[label] = (time.perf_counter() - t0) / iters * 1e3
+    tree_bound, _ = bound(nbytes, 6 * nbytes / 4, "uint32")
+    log(f"  whole-state tree call ({nbytes / 1e9:.3f} GB, host clock, fingerprints on "
+        f"the host at the end): kernel {tree['kernel']:.3f} ms, plain {tree['plain']:.3f} "
+        f"ms, bound {tree_bound:.4f} ms (bytes)")
+
+    # the same state saved twice through the device path, then on the host path
+    store = TieredStore(work / "resave")
+    saves = {}
+    for label, device_fp, s in (("device, first", True, 1), ("device, clean", True, 2),
+                                ("host, same state", False, 3)):
+        mgr = CheckpointManager(store, CheckpointPolicy(delta=True, device_fp=device_fp))
+        t0 = time.perf_counter()
+        part = mgr.save(s, state)
+        mgr.commit(s)
+        wall = time.perf_counter() - t0
+        mgr.close()
+        d = part["delta"]
+        saves[label] = {"wall_s": wall, **{k: d.get(k) for k in (
+            "stall_s", "fp_device_s", "d2h_bytes", "d2h_s", "hash_s", "diff_s", "write_s",
+            "chunks_total", "chunks_clean_device", "chunks_hashed", "bytes_written")}}
+        log(f"  save {s} ({label}): stall_s {d.get('stall_s', 0):.3f} wall_s {wall:.3f} "
+            f"(commit {wall - d.get('stall_s', 0):.3f}) fp_device_s "
+            f"{d.get('fp_device_s', 0):.4f} d2h_bytes {d.get('d2h_bytes')} d2h_s "
+            f"{d.get('d2h_s', 0):.3f} hash_s {d.get('hash_s', 0):.3f} diff_s "
+            f"{d.get('diff_s', 0):.3f} write_s {d.get('write_s', 0):.3f} chunks "
+            f"{d.get('chunks_total')} clean {d.get('chunks_clean_device')} hashed "
+            f"{d.get('chunks_hashed')} bytes_written {d.get('bytes_written')}")
+    clean = saves["device, clean"]
+    if clean["d2h_bytes"] != 0 or clean["chunks_clean_device"] != clean["chunks_total"]:
+        raise AssertionError(f"the re-save of an unchanged state copied bytes: {clean}")
+    shutil.rmtree(work / "resave")
+    del state, named, fps
+    torch.cuda.empty_cache()
+    return {"step_ms": wall_s * 1e3, "busy_share": busy_s / wall_s, "tree_ms": tree,
+            "tree_bound_ms": tree_bound, "fp_launches_per_save": want_launches,
+            "saves": saves}
+
+
+def _train_run(work: Path, tag: str, ckpt: str, extra: list) -> tuple[int, dict]:
+    out = work / f"{tag}.json"
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_ARGV,
+           "--ckpt-dir", str(work / ckpt), "--metrics-out", str(out), *extra]
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(ROOT / "src")] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH")
+                               else []))}
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if not out.exists():
+        raise AssertionError(f"train run {tag} wrote no metrics (exit {r.returncode}):\n"
+                             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    m = json.loads(out.read_text())
+    steps = m["steps"]
+    log(f"  run {tag}: exit {r.returncode} in {wall:.1f}s, steps "
+        f"{[s['step'] for s in steps]}, start {m['start_step']}, restore_s "
+        f"{m['restore_s'] if m['restore_s'] is None else round(m['restore_s'], 3)}, "
+        f"launches {m['launches']}")
+    log("    step ms " + " ".join(f"{s['ms']:.1f}" for s in steps)
+        + "  losses " + " ".join(repr(s["loss"]) for s in steps))
+    for sv in m["saves"]:
+        log(f"    save at step {sv['step']}: stall_s {sv.get('stall_s', 0):.3f} fp_device_s "
+            f"{sv.get('fp_device_s', 0):.4f} d2h_bytes {sv.get('d2h_bytes')} d2h_s "
+            f"{sv.get('d2h_s', 0):.3f} hash_s {sv.get('hash_s', 0):.3f} write_s "
+            f"{sv.get('write_s', 0):.3f} chunks {sv.get('chunks_total')} clean "
+            f"{sv.get('chunks_clean_device')}")
+    return r.returncode, m
+
+
+def _final_hashes(ckpt_dir: Path) -> dict:
+    from repro_torch.checkpoint.manager import CheckpointManager, CheckpointPolicy
+    from repro_torch.checkpoint.store import TieredStore
+
+    mgr = CheckpointManager(TieredStore(ckpt_dir), CheckpointPolicy(delta=True))
+    man = mgr.read_manifest(TRAIN_STEPS - 1)
+    mgr.close()
+    return {e["path"]: [c["hash"] for c in e["chunks"]] for e in man["leaves"]}
+
+
+def phase_train(work: Path, fp_per_save: int) -> dict:
+    """The paper's C/R loop at full width, as a user runs it: A uninterrupted;
+    B with a walltime its margin exceeds, so it checkpoints after its first
+    step and exits 85; C requeued on B's directory, restoring and finishing."""
+    rc_a, a = _train_run(work, "A", "a", [])
+    hashes_a = _final_hashes(work / "a")
+    shutil.rmtree(work / "a")
+    rc_b, b = _train_run(work, "B", "b", ["--walltime", "0.5", "--margin", "100"])
+    rc_c, c = _train_run(work, "C", "b", [])
+    if (rc_a, rc_b, rc_c) != (0, 85, 0):
+        raise AssertionError(f"exit codes A/B/C {(rc_a, rc_b, rc_c)}, expected (0, 85, 0)")
+    if [s["step"] for s in b["steps"]] != [0] or c["start_step"] != 1:
+        raise AssertionError("B must stop after step 0 and C resume at step 1")
+    loss_a, loss_c = a["steps"][-1]["loss"], c["steps"][-1]["loss"]
+    same_losses = [s["loss"] for s in a["steps"]] == [s["loss"] for s in b["steps"] + c["steps"]]
+    same_hashes = hashes_a == _final_hashes(work / "b")
+    log(f"  final loss A {loss_a!r} C {loss_c!r}: {'EQUAL' if loss_a == loss_c else 'DIFFER'};"
+        f" every step's loss equal {same_losses}; final chunk hashes identical {same_hashes}")
+    if loss_a != loss_c or not same_losses or not same_hashes:
+        raise AssertionError("the requeued run did not finish bit-identical to run A")
+    counts = {}
+    for tag, m in (("A", a), ("B", b), ("C", c)):
+        want = {"flash": 24 * len(m["steps"]), "chunk_fingerprints": fp_per_save * len(m["saves"])}
+        if m["launches"] != want:
+            raise AssertionError(f"run {tag}: launches {m['launches']}, expected {want}")
+        for k, n in m["launches"].items():
+            counts[k] = counts.get(k, 0) + n
+    log(f"  launches over A+B+C {counts} (flash 24 per step, chunk_fingerprints "
+        f"{fp_per_save} per device-fp save)")
+    return {"counts": counts, "A": a, "B": b, "C": c}
+
+
 def main() -> int:
     import torch
 
@@ -348,16 +678,35 @@ def main() -> int:
     phase_reference()
     log("phase 5 where the serving path's device time goes (torch.profiler)")
     phase_profile()
+    work = _work_dir()
+    try:
+        log("phase 6 the full-width train state: fingerprints, a profiled step, saves")
+        state_rep = phase_state(work)
+        log("phase 7 train qwen2-0.5b at full width through the C/R loop "
+            "(--ckpt-delta --ckpt-device-fp): A, B preempted, C requeued")
+        train_rep = phase_train(work, state_rep["fp_launches_per_save"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
+    # launches over every main-path run of this script: the serve run and the
+    # three train runs (the checksum kernel is on no main path)
+    launches = {"flash": serve_rep["counts"]["flash"] + train_rep["counts"]["flash"],
+                "flash_decode": serve_rep["counts"]["flash_decode"],
+                "chunk_fingerprints": train_rep["counts"]["chunk_fingerprints"],
+                "checksum": 0}
     sources = {"flash": ("src/repro_torch/csrc/flash_attention.cu",
                          "src/repro/kernels/flash_attention.py:75"),
                "flash_decode": ("src/repro_torch/csrc/decode_attention.cu",
-                                "src/repro/kernels/decode_attention.py:74")}
+                                "src/repro/kernels/decode_attention.py:74"),
+               "chunk_fingerprints": ("src/repro_torch/csrc/checksum.cu",
+                                      "src/repro/kernels/checksum.py:126"),
+               "checksum": ("src/repro_torch/csrc/checksum.cu",
+                            "src/repro/kernels/checksum.py:61")}
     kernels = []
     for name, (src, replaces) in sources.items():
         r = kern[name]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": serve_rep["counts"][name],
+                        "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -45,6 +45,7 @@ from pathlib import Path
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch.checkpoint import serialization as SER
 from repro_torch.checkpoint.async_writer import AsyncWriter, WorkPool
@@ -54,12 +55,6 @@ from repro_torch.checkpoint.store import (TieredStore, chunk_refcounts, chunk_re
                                     manifest_chunk_hashes)
 
 __all__ = ["CheckpointManager", "CheckpointPolicy", "PROMOTE_POLICIES"]
-
-# device_fp=True runs the chunk-fingerprint kernel over the live device tree;
-# that kernel is not ported yet, and no plain version stands in for it
-DEVICE_FP_NOT_PORTED = (
-    "device fingerprints (CheckpointPolicy(device_fp=True)) need the chunk "
-    "fingerprint kernel, which repro_torch has not ported yet")
 
 # how far behind a stale peer's cached step may be before the chunk plane
 # stops considering it a source: chunk overlap decays with step distance, and
@@ -273,10 +268,9 @@ class CheckpointManager:
         # comparison survives restarts (the manifest persists the vector).
         # Same 32-bit-collision trade-off as fingerprint=True, accepted by
         # opting in.  ``device_fp_impl`` picks the kernel backend
-        # (auto=jnp oracle, pallas, pallas_interpret; env override for
-        # tests and TPU rollout).
-        if policy.device_fp:
-            raise NotImplementedError(DEVICE_FP_NOT_PORTED)
+        # (auto/pallas = the CUDA kernel for CUDA leaves and the plain
+        # version for CPU ones; ref/xla = the plain version, CPU leaves only;
+        # see kernels/ops.py), with an environment override for tests.
         self.device_fp = policy.device_fp
         self.device_fp_impl = os.environ.get("REPRO_DEVICE_FP_IMPL", "auto")
         self.hash_workers = policy.hash_workers
@@ -1060,19 +1054,19 @@ class CheckpointManager:
         distrusted clean chunk is simply reclassified dirty and refetched.
 
         Every device read happens HERE, synchronously on the calling
-        (training) thread — donation-safety: nothing defers a read of a
-        buffer the next jitted step might invalidate.  Dirty slots are
-        coalesced into runs and each run is one ranged ``device_get`` of
-        the covering ELEMENT span (chunk boundaries need not align with
-        the leaf's itemsize — the byte view into the fetched span is
-        re-offset).
+        (training) thread: the optimizer updates the state in place, so
+        nothing may defer a read past the next step.  Dirty slots are
+        coalesced into runs and each run is one ranged host copy: of the
+        run's byte span for a torch leaf (always a copy, also on the CPU),
+        of the covering ELEMENT span for a numpy leaf (chunk boundaries
+        need not align with the leaf's itemsize — the byte view into the
+        fetched span is re-offset).
 
         Returns ``(plans, stats)``: per-leaf
         ``(index, name, dtype, shape, nbytes, slots)`` with slots
         ``(nbytes, fp, ref_entry_or_None, view_or_None)`` — exactly one of
         entry/view is set — and the D2H accounting stats.
         """
-        raise NotImplementedError(DEVICE_FP_NOT_PORTED)
         from repro_torch.kernels import ops as KOPS
 
         t0 = time.perf_counter()
@@ -1107,7 +1101,11 @@ class CheckpointManager:
                     slots[i] = (sn, fpi, None, None)
                     dirty.append(i)
             if dirty:
-                flat = leaf.reshape(-1)
+                # a torch leaf (on the card, or on the CPU where training
+                # updates it in place) is copied to the host as its byte
+                # span; a numpy leaf is sliced by elements, as the reference
+                is_torch = isinstance(leaf, torch.Tensor)
+                flat = KOPS.byte_view(leaf) if is_torch else leaf.reshape(-1)
                 runs, a, b = [], dirty[0], dirty[0]
                 for s in dirty[1:]:
                     if s == b + 1:
@@ -1119,14 +1117,17 @@ class CheckpointManager:
                 for a, b in runs:
                     b0 = a * cb
                     b1 = min((b + 1) * cb, nbytes)
-                    e0 = b0 // itemsize
-                    e1 = -(-b1 // itemsize)
+                    e0, e1 = ((b0, b1) if is_torch
+                              else (b0 // itemsize, -(-b1 // itemsize)))
                     t1 = time.perf_counter()
-                    seg = np.ascontiguousarray(np.asarray(flat[e0:e1]))
+                    if is_torch:
+                        seg = flat[e0:e1].to("cpu", copy=True).numpy()
+                    else:
+                        seg = np.ascontiguousarray(np.asarray(flat[e0:e1]))
                     d2h_s += time.perf_counter() - t1
                     d2h_bytes += seg.nbytes
                     segb = memoryview(seg.view(np.uint8).reshape(-1))
-                    off = b0 - e0 * itemsize
+                    off = b0 - e0 * (1 if is_torch else itemsize)
                     for s in range(a, b + 1):
                         sn, fpi, _, _ = slots[s]
                         sb = off + (s - a) * cb

@@ -831,7 +831,11 @@ BF16 = np.dtype([("bfloat16", "<u2")])
 
 
 def dtype_name(dt) -> str:
-    """The dtype string written into headers and manifests."""
+    """The dtype string written into headers and manifests: numpy's name of
+    the type, for a numpy dtype or a torch one ("float32", "bfloat16",
+    "bool", "int32"), as the reference package writes it."""
+    if isinstance(dt, torch.dtype):
+        return str(dt).removeprefix("torch.")
     return "bfloat16" if dt == BF16 else str(dt)
 
 

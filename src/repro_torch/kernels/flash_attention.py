@@ -3,7 +3,9 @@
 Port of ``repro/kernels/flash_attention.py::flash`` (a Pallas TPU kernel).
 The source's header says how the Hopper design differs from the TPU one.
 For a tensor on the CPU the wrapper takes the plain version
-(``ref.attention``); for a CUDA tensor it launches the kernel or raises.
+(``ref.attention``), which autograd differentiates directly; for a CUDA
+tensor it launches the kernel or raises, and under autograd the kernel's
+output gets the plain version's gradient (``_Flash``).
 """
 from __future__ import annotations
 
@@ -62,8 +64,10 @@ def _check(q, k, v):
 
 def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
           causal: bool = True, scale=None) -> torch.Tensor:
-    """q: (B,Sq,H,Dq); k: (B,Skv,Hkv,Dq); v: (B,Skv,Hkv,Dv) -> (B,Sq,H,Dv)."""
-    global launches
+    """q: (B,Sq,H,Dq); k: (B,Skv,Hkv,Dq); v: (B,Skv,Hkv,Dv) -> (B,Sq,H,Dv).
+
+    Differentiable: where a CUDA input requires a gradient, the kernel's
+    output carries a backward (``_Flash``)."""
     devices = {q.device, k.device, v.device}
     if len(devices) != 1:
         raise ValueError(f"flash: q, k, v on different devices {devices}")
@@ -72,10 +76,40 @@ def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash: no kernel for device {q.device}")
     _check(q, k, v)
+    if scale is None:
+        scale = 1.0 / float(np.sqrt(q.shape[-1]))
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _Flash.apply(q, k, v, causal, scale)
+    return _launch(q, k, v, causal, scale)
+
+
+class _Flash(torch.autograd.Function):
+    """Forward: the CUDA kernel.  Backward: the gradient of the plain version
+    (``ref.attention``), recomputed from the saved q, k, v.  The reference
+    package has no backward kernel either: its training path differentiates
+    plain XLA attention.  A hand-written backward kernel is later speed work."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        return _launch(q, k, v, causal, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        need = ctx.needs_input_grad[:3]
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            out = ref.attention(*inputs, causal=ctx.causal, scale=ctx.scale)
+        grads = iter(torch.autograd.grad(out, [t for t in inputs if t.requires_grad],
+                                         grad_out))
+        return (*(next(grads) if n else None for n in need), None, None)
+
+
+def _launch(q, k, v, causal: bool, scale: float) -> torch.Tensor:
+    global launches
     B, Sq, H, Dq = q.shape
     Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
-    if scale is None:
-        scale = 1.0 / float(np.sqrt(Dq))
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out

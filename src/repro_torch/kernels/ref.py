@@ -2,13 +2,17 @@
 
 Each is the ground truth its CUDA kernel is held against on the card
 (``chip_smoke.py``, the ``gpu`` tests) and the path a wrapper takes for a
-tensor that lies on the CPU.  Only ``attention`` is here so far: the other
-oracles of ``repro/kernels/ref.py`` come with their kernels.
+tensor that lies on the CPU.  ``attention``, ``checksum`` and
+``chunk_fingerprints`` are here so far: the SSM oracles of
+``repro/kernels/ref.py`` come with their kernels.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+PRIME = 16777619
+_M32 = 0xFFFFFFFF
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -42,3 +46,71 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.where(torch.isnan(p), torch.zeros_like(p), p)   # fully-masked rows
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+
+
+# ----------------------------------------------------------------------------------
+# Checkpoint checksum and chunk fingerprints (FNV-style mix over uint32 words).
+#
+# PyTorch has no wrapping uint32 arithmetic on every device (a uint32 sum
+# widens to int64 on the CPU, and shifts refuse UInt32), so words are held in
+# int64 as values in [0, 2^32) and every product and sum is masked back to 32
+# bits.  Products of two such values would overflow int64; ``_mul32`` splits
+# one factor into 16-bit halves so no intermediate passes 2^49.
+# ----------------------------------------------------------------------------------
+
+
+def _u32(words: torch.Tensor) -> torch.Tensor:
+    """int32/uint32 words as int64 values in [0, 2^32)."""
+    return words.to(torch.int64) & _M32
+
+
+def _mul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a * b) mod 2^32 for int64 tensors holding values in [0, 2^32)."""
+    lo = a * (b & 0xFFFF)
+    hi = ((a * (b >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _mix(w: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return _mul32(w ^ ((idx * PRIME) & _M32), idx | 1)
+
+
+def _xor_reduce(m: torch.Tensor) -> torch.Tensor:
+    """XOR over the last dim, by halving folds (zero columns pad it to a
+    power of two; XOR with 0 changes nothing)."""
+    n = m.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width != n:
+        m = torch.nn.functional.pad(m, (0, width - n))
+    while m.shape[-1] > 1:
+        half = m.shape[-1] // 2
+        m = m[..., :half] ^ m[..., half:]
+    return m[..., 0]
+
+
+def _to_int32_bits(v: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) as int32 tensors holding the same 32 bits."""
+    return torch.where(v >= 2**31, v - 2**32, v).to(torch.int32)
+
+
+def checksum(words: torch.Tensor) -> torch.Tensor:
+    """(N,) int32/uint32 words -> 0-d int32 holding the uint32 digest:
+    XOR + SUM (mod 2^32) of each word mixed with its global index."""
+    w = _u32(words.reshape(-1))
+    idx = torch.arange(w.numel(), dtype=torch.int64, device=w.device) & _M32
+    m = _mix(w, idx)
+    return _to_int32_bits((_xor_reduce(m) + (m.sum() & _M32)) & _M32)
+
+
+def chunk_fingerprints(words: torch.Tensor, chunk_words: int) -> torch.Tensor:
+    """(N,) int32/uint32 words -> (ceil(N / chunk_words),) int32 holding one
+    uint32 per chunk: the same mix with the index local to the chunk; a
+    ragged tail is zero-padded."""
+    w = _u32(words.reshape(-1))
+    pad = (-w.numel()) % chunk_words
+    if pad:
+        w = torch.nn.functional.pad(w, (0, pad))
+    w = w.reshape(-1, chunk_words)
+    idx = torch.arange(chunk_words, dtype=torch.int64, device=w.device)[None, :]
+    m = _mix(w, idx)
+    return _to_int32_bits((_xor_reduce(m) + (m.sum(dim=1) & _M32)) & _M32)

@@ -140,8 +140,11 @@ def embedding_spec(vocab: int, dim: int) -> dict:
 
 def embed(p, ids: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     # gather first, then cast: the same values as casting the whole table,
-    # without writing a cast copy of it on every step
-    h = p["table"][ids.long()]
+    # without writing a cast copy of it on every step.  index_select, not
+    # advanced indexing: its backward (index_add) is deterministic on CUDA
+    table = p["table"]
+    h = torch.index_select(table, 0, ids.reshape(-1).long())
+    h = h.reshape(*ids.shape, table.shape[-1])
     return h if compute_dtype is None else h.to(compute_dtype)
 
 

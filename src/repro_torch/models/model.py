@@ -9,7 +9,9 @@ take an ``LM`` or the nested dict itself.  Caches mirror the segment
 structure: ``{"seg0": {"k", "v"}: (L,B,S,Hkv,Dh), "t": int32 0-d}``.
 
 Only the dense plan (``attn_dense`` layers) is ported so far; other families
-raise ``NotImplementedError``.
+raise ``NotImplementedError``.  Training differentiates ``loss_fn`` with
+autograd over a plain dict of tensors (``train/step.py``); the reference's
+layer remat (``jax.checkpoint``) only saves memory and is left out.
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as BL
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamSpec
-from repro_torch.utils.tree import flatten_with_names, tree_leaves, tree_map
+from repro_torch.utils.tree import (flatten_with_names, tree_leaves, tree_map,
+                                    unflatten_like)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,9 +111,15 @@ def _tree(params) -> dict:
 
 
 def _layers(params, i: int, count: int) -> list:
+    """Per-layer views of segment ``i``.  For a plain dict (the train state's
+    params) each stacked leaf is unbound once, so under autograd its
+    gradient is assembled by one stack, not by ``count`` full-size scatters."""
     if isinstance(params, LM):
         return params.layers[i]
-    return [tree_map(lambda x, j=j: x[j], params[f"seg{i}"]) for j in range(count)]
+    seg = params[f"seg{i}"]
+    per_leaf = {n: x.unbind(0) for n, x in flatten_with_names(seg)}
+    return [unflatten_like(seg, {n: xs[j] for n, xs in per_leaf.items()})
+            for j in range(count)]
 
 
 def init_params(cfg: ModelConfig, seed: int, device) -> LM:
@@ -182,6 +191,63 @@ def forward_full(params, cfg: ModelConfig, batch: dict, *, want_cache=False, imp
         caches.append(entries)
     h = L.rms_norm(tree["final_norm"], h, cfg.norm_eps)
     return h, (caches if want_cache else None)
+
+
+# ----------------------------------------------------------------------------------
+# Loss (chunked over the sequence, as the reference's, so fp32 logits exist for
+# one chunk at a time)
+# ----------------------------------------------------------------------------------
+
+
+def _ce_from_logits(logits, labels, mask):
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    ce = (lse - gold) * mask
+    zl = torch.square(lse) * mask
+    return torch.sum(ce), torch.sum(zl)
+
+
+def chunked_ce(params, cfg: ModelConfig, h, labels, mask, chunk: int = 1024):
+    """h: (B,S,D); labels: (B,S); mask: (B,S) fp32. Returns (ce_sum, z_sum, n).
+
+    The reference recomputes each chunk's logits in its backward
+    (``jax.checkpoint``); here autograd keeps them, which at the port's
+    training shapes (one chunk of B x 128 rows) costs less than the
+    recompute would."""
+    B, S, _ = h.shape
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk -= 1
+    ce_s = torch.zeros((), dtype=torch.float32, device=h.device)
+    z_s = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(S // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        ce, z = _ce_from_logits(logits_fn(params, cfg, h[:, sl]), labels[:, sl], mask[:, sl])
+        ce_s, z_s = ce_s + ce, z_s + z
+    return ce_s, z_s, torch.clamp(torch.sum(mask), min=1.0)
+
+
+def _shift_labels(cfg: ModelConfig, batch: dict):
+    tokens = batch["tokens"]
+    labels = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
+    B, S = tokens.shape[:2]
+    mask = torch.ones((B, S), dtype=torch.float32, device=tokens.device)
+    mask[:, -1] = 0.0
+    if "loss_mask" in batch:
+        mask = mask * batch["loss_mask"].float()
+    return labels, mask
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict, *, impl=None, z_loss: float = 1e-4):
+    """Next-token cross entropy plus ``z_loss`` x mean(logsumexp^2), as the
+    reference's ``loss_fn`` for the dense plan (no MoE aux loss, no MTP
+    head).  Returns (loss, {"ce", "aux", "tokens"})."""
+    h, _ = forward_full(params, cfg, batch, impl=impl)
+    labels, mask = _shift_labels(cfg, batch)
+    ce, z, n = chunked_ce(params, cfg, h, labels, mask)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    loss = ce / n + z_loss * z / n + aux
+    return loss, {"ce": ce / n, "aux": aux, "tokens": n}
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:

@@ -209,3 +209,25 @@ def test_ops_refuses_the_plain_version_on_cuda(hopper):
     q, k, v = _cuda_inputs(1, 8, 8, 4, 2, 32, 32, "float32")
     with pytest.raises(ValueError, match="CPU tensors only"):
         ops.attention(q, k, v, impl="xla")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_gradient_vs_plain(hopper, dtype):
+    """Training's attention: the kernel forward under autograd, with the plain
+    version's backward, against the plain forward and backward in float32 at
+    the training shape (B8 S128 H14 Hkv2 D64)."""
+    q, k, v = (t.requires_grad_() for t in _cuda_inputs(8, 128, 128, 14, 2, 64, 64, dtype))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    go = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+    n = flash_attention.launches
+    out = flash_attention.flash(q, k, v, causal=True)
+    assert flash_attention.launches == n + 1 and out.grad_fn is not None
+    grads = torch.autograd.grad(out, (q, k, v), go)
+    plain_in = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    want = ref.attention(*plain_in, causal=True)
+    want_grads = torch.autograd.grad(want, plain_in, go.float())
+    assert float((out.detach().float() - want.detach()).abs().max()) < TOL[dtype]
+    for got, w in zip(grads, want_grads):
+        assert got.dtype == q.dtype and float(w.abs().max()) > 0
+        assert float((got.float() - w).abs().max()) < TOL[dtype]
