@@ -9,18 +9,22 @@ Phases, in order; any failure exits non-zero:
    per source, started together);
 2. kernels: each kernel against its plain PyTorch version on the card, at the
    main paths' shapes and a few others, with the tolerances of the reference
-   package's kernel tests (2e-5 float32, 5e-2 bfloat16, against the plain
-   version in float32; the integer checksum kernels bit for bit), the flash
+   package's kernel tests (attention 2e-5 float32, 5e-2 bfloat16, against the
+   plain version in float32; the SSM scans 5e-5 (SSD) and 1e-4 (WKV6) in
+   float32 and 1e-2 in bfloat16, at the main widths relative to each
+   output's largest |plain| value; the integer checksum kernels bit for bit), the flash
    kernel's gradient under autograd, and kernel, plain, library (timed only)
    and bound times at the main paths' shapes;
-3. serve: ``repro_torch.launch.serve`` at the full width of qwen2-0.5b with a
-   snapshot, migration and restore half way; the continuation must match the
-   unmigrated run bit for bit, and the launch counts must show that every
-   attention call went through the kernels;
-4. reference: reduced qwen2-0.5b in float32, the card's path (kernels) against
-   the CPU path (plain versions): equal greedy tokens, close logits;
+3. serve: ``repro_torch.launch.serve`` at full width and depth with a
+   snapshot, migration and restore half way, for qwen2-0.5b, zamba2-1.2b and
+   rwkv6-1.6b in turn; each continuation must match the unmigrated run bit
+   for bit, and the launch counts must show that every attention and SSM
+   scan call went through the kernels;
+4. reference: reduced qwen2-0.5b, zamba2-1.2b and rwkv6-1.6b in float32, the
+   card's path (kernels) against the CPU path (plain versions): equal greedy
+   tokens, close logits;
 5. profile: device time by kernel and the device's busy share over one
-   prefill and over decode steps at the main path's shapes;
+   prefill and over decode steps at the serve phases' shapes, per arch;
 6. train state: the full-width qwen2-0.5b train state (params, AdamW m and v:
    5.93 GB) after one step, fingerprinted whole on the card and held against
    the plain version and the host's fingerprints, with the tree call timed;
@@ -58,10 +62,22 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "uint32": 67e12}
 TOL = {"float32": 2e-5, "bfloat16": 5e-2}
 L2_BYTES = 50 * 2**20
 
-SERVE_ARGV = ["--arch", "qwen2-0.5b", "--batch", "4", "--prompt-len", "512",
-              "--gen", "32", "--max-seq", "1024", "--snapshot-at", "16"]
-# 2 prefills x 24 layers; (32 + 16 + 16) decode steps x 24 layers
-EXPECTED_LAUNCHES = {"flash": 48, "flash_decode": 1536}
+SERVE_ARGV = ["--batch", "4", "--prompt-len", "512", "--gen", "32", "--max-seq", "1024",
+              "--snapshot-at", "16"]
+# launches of one serve run: 2 prefills and (32 + 16 + 16) decode steps
+EXPECTED_LAUNCHES = {
+    # 24 attention layers
+    "qwen2-0.5b": {"flash": 48, "flash_decode": 1536, "ssd": 0, "wkv6": 0},
+    # 38 mamba2 layers; 6 shared-attention calls
+    "zamba2-1.2b": {"flash": 12, "flash_decode": 384, "ssd": 76, "wkv6": 0},
+    # 24 rwkv6 layers, no attention
+    "rwkv6-1.6b": {"flash": 0, "flash_decode": 0, "ssd": 0, "wkv6": 48},
+}
+SERVE_ARCHS = tuple(EXPECTED_LAUNCHES)
+# bfloat16: relative to the largest |plain| value of each output; the kernel
+# rounds y to bfloat16, at most 2^-8 of |y|
+SCAN_TOL = {"ssd": {"float32": 5e-5, "bfloat16": 1e-2},
+            "wkv6": {"float32": 1e-4, "bfloat16": 1e-2}}
 
 TRAIN_STEPS = 6
 TRAIN_ARGV = ["--arch", "qwen2-0.5b", "--batch", "8", "--seq", "128",
@@ -148,6 +164,7 @@ def phase_kernels() -> dict:
     # ---- flash -------------------------------------------------------------
     flash_cases = [  # B, S, H, Hkv, Dq, Dv, dtype, causal
         (4, 512, 14, 2, 64, 64, "bfloat16", True),     # the main path's prefill
+        (4, 512, 32, 32, 64, 64, "bfloat16", True),    # zamba2's shared attention, G=1
         (2, 300, 14, 2, 64, 64, "float32", True),      # ragged length
         (1, 256, 8, 1, 128, 64, "float32", False),     # Dq != Dv, not causal
     ]
@@ -187,6 +204,7 @@ def phase_kernels() -> dict:
     # ---- flash_decode ------------------------------------------------------
     decode_cases = [  # B, S, H, Hkv, D, dtype, kv_lens
         (4, 1024, 14, 2, 64, "bfloat16", (1, 300, 544, 1024)),   # 544: end of the main path
+        (4, 1024, 32, 32, 64, "bfloat16", (1, 300, 544)),        # zamba2's shared attention
         (2, 512, 8, 2, 64, "float32", (77,)),
     ]
     worst = 0.0
@@ -252,6 +270,7 @@ def phase_kernels() -> dict:
     report["flash"]["grad_max_abs_err"] = max(errs[1:])
 
     report.update(_checksum_kernels(gen))
+    report.update(_scan_kernels(gen))
     return report
 
 
@@ -312,35 +331,156 @@ def _checksum_kernels(gen) -> dict:
     return out
 
 
-def phase_serve(ckpt_dir: str) -> dict:
-    """The port's serving path at full width, once, with the launch counts read
-    around it."""
+def ssd_flops(B: int, S: int, H: int, P: int, N: int, Q: int = 64) -> int:
+    """Operations of csrc/ssd_scan.cu's chunked form (chunk Q) on these shapes:
+    lower-triangle scores, y, and the state update, per (batch, head)."""
+    per = 0
+    for t0 in range(0, S, Q):
+        L = min(Q, S - t0)
+        tri = L * (L + 1) // 2
+        per += tri * (2 * N + 2) + tri * 2 * P + L * P * (2 * N + 4) + P * N * (3 * L + 2)
+    return B * H * per
+
+
+def _scan_inputs(kind, shape, dtype, gen, with_state):
+    """SSD (B,S,H,P,N) or WKV6 (B,S,H,D) inputs at the scales of the reference's
+    kernel tests (tests/test_kernels.py:63-102), made on the card."""
+    import torch
+
+    def rn(*sh):
+        return torch.randn(sh, generator=gen, device="cuda")
+
+    if kind == "ssd":
+        B, S, H, P, N = shape
+        dt = (rn(B, S, H).abs() * 0.5).to(dtype)
+        args = ((rn(B, S, H, P) * 0.5).to(dtype), dt, rn(H) * 0.3,
+                (rn(B, S, N) * 0.5).to(dtype), (rn(B, S, N) * 0.5).to(dtype),
+                torch.ones(H, device="cuda"))
+        st0 = rn(B, H, P, N) * 0.5
+    else:
+        B, S, H, D = shape
+        w = torch.rand((B, S, H, D), generator=gen, device="cuda") * 0.299 + 0.7
+        args = tuple((rn(B, S, H, D) * 0.5).to(dtype) for _ in range(3)) + (
+            w.to(dtype), rn(H, D) * 0.3)
+        st0 = rn(B, H, D, D) * 0.5
+    return args, (st0 if with_state else None)
+
+
+def _scan_kernels(gen) -> dict:
+    """ssd and wkv6 against their plain versions (the sequential recurrences):
+    the main shapes in bfloat16, the reference's test shapes in float32, a
+    ragged S and an initial state; timed at the main shapes."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.kernels import wkv6 as WKV
+
+    dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    kernels = {"ssd": (SSD.ssd, ref.ssd), "wkv6": (WKV.wkv6, ref.wkv6)}
+    # shape, dtype, with an initial state, and whether the error is taken
+    # relative to each output's max |plain| (the main widths over 500+ tokens,
+    # where |y| reaches ~20) or absolute (the reference's test shapes)
+    cases = {
+        "ssd": [((4, 512, 64, 64, 64), "bfloat16", False, True),   # zamba2's prefill
+                ((4, 500, 64, 64, 64), "bfloat16", True, True),    # ragged, with a state
+                ((4, 512, 64, 64, 64), "float32", False, True),
+                ((2, 128, 3, 32, 16), "float32", False, False),    # tests/test_kernels.py:74
+                ((1, 256, 2, 16, 64), "float32", True, False),
+                ((2, 64, 4, 8, 8), "float32", False, False),
+                ((2, 500, 8, 64, 64), "float32", True, True)],
+        "wkv6": [((4, 512, 32, 64), "bfloat16", False, True),      # rwkv6's prefill
+                 ((4, 500, 32, 64), "bfloat16", True, True),
+                 ((4, 512, 32, 64), "float32", False, True),
+                 ((2, 128, 3, 32), "float32", False, False),       # tests/test_kernels.py:106
+                 ((1, 64, 2, 64), "float32", True, False),
+                 ((2, 96, 1, 16), "float32", False, False),
+                 ((2, 500, 4, 64), "float32", True, True)],
+    }
+    out = {}
+    for name, (kernel, plain) in kernels.items():
+        worst = 0.0
+        for shape, dtn, with_state, relative in cases[name]:
+            args, st0 = _scan_inputs(name, shape, dt[dtn], gen, with_state)
+            y, st = kernel(*args, init_state=st0, return_state=True)
+            y2, st2 = kernel(*args, init_state=st0, return_state=True)
+            want, wst = plain(*(a.float() for a in args), init_state=st0, return_state=True)
+            torch.cuda.synchronize()
+            errs = [(y.float() - want).abs().max().item(), (st - wst).abs().max().item()]
+            scales = ([max(1.0, want.abs().max().item()), max(1.0, wst.abs().max().item())]
+                      if relative else [1.0, 1.0])
+            rel = max(e / s for e, s in zip(errs, scales))
+            err = max(errs)
+            same = torch.equal(y, y2) and torch.equal(st, st2)
+            ok = (rel <= SCAN_TOL[name][dtn] and same
+                  and bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all()))
+            log(f"  {name} {'x'.join(map(str, shape))} {dtn} init_state={with_state}: "
+                f"max_abs_err y/state {errs[0]:.3g}/{errs[1]:.3g}"
+                + (f" = {errs[0] / scales[0]:.3g}/{errs[1] / scales[1]:.3g} of max |plain| "
+                   f"{scales[0]:.3g}/{scales[1]:.3g}" if relative else "")
+                + f" (tol {SCAN_TOL[name][dtn]}) repeatable={same} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} disagrees with its plain version: {err}")
+            worst = max(worst, err)
+        shape, dtn = cases[name][0][:2]
+        args, _ = _scan_inputs(name, shape, dt[dtn], gen, False)
+        sets = copies_past_l2(args)
+        ms = timed_ms(lambda *a: kernel(*a, return_state=True), sets)
+        plain_ms = timed_ms(lambda *a: plain(*a, return_state=True), sets, iters=3)
+        elt = args[0].element_size()
+        if name == "ssd":
+            B, S, H, P, N = shape
+            nbytes = elt * (2 * B * S * H * P + B * S * H + 2 * B * S * N) + 8 * H + 4 * B * H * P * N
+            flops = ssd_flops(B, S, H, P, N)
+        else:
+            B, S, H, D = shape
+            nbytes = elt * 5 * B * S * H * D + 4 * H * D + 4 * B * H * D * D
+            flops = B * S * H * (4 * D * D + 5 * D)
+        b_ms, b_by = bound(nbytes, flops, dtn)
+        out[name] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=None,
+                         bound_ms=b_ms, bound_by=b_by,
+                         shape=f"{'x'.join(map(str, shape))} {dtn}, final state out")
+        log(f"  {name} timing ({out[name]['shape']}): kernel_ms {ms:.4f} plain_ms "
+            f"{plain_ms:.4f} library_ms none bound_ms {b_ms:.5f} ({b_by}; "
+            f"{nbytes} bytes, {flops} flops)")
+    return out
+
+
+def phase_serve(ckpt_dir: str, arch: str) -> dict:
+    """The port's serving path at full width and depth, once, with the launch
+    counts of every serving kernel set to 0 just before and read just after."""
+    import torch
+
     from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.kernels import wkv6 as WKV
     from repro_torch.launch import serve
 
-    args = serve.parse_args(SERVE_ARGV + ["--ckpt-dir", ckpt_dir])
-    flash_attention.launches = 0
-    decode_attention.launches = 0
+    mods = {"flash": flash_attention, "flash_decode": decode_attention, "ssd": SSD,
+            "wkv6": WKV}
+    args = serve.parse_args(["--arch", arch] + SERVE_ARGV + ["--ckpt-dir", ckpt_dir])
+    for m in mods.values():
+        m.launches = 0
     rep = serve.run(args)
-    counts = {"flash": flash_attention.launches,
-              "flash_decode": decode_attention.launches}
+    counts = {name: m.launches for name, m in mods.items()}
+    torch.cuda.empty_cache()
     log(f"  continuation {'MATCHES' if rep['match'] else 'DIVERGED FROM'} the "
         "unmigrated reference")
     log(f"  prefill_ms {rep['prefill_ms']:.3f} (second prefill {rep['prefill_warm_ms']:.3f})"
         f"  decode_ms_per_token "
         f"{rep['decode_ms_per_token']:.3f}  snapshot save_s {rep['save_s']:.4f} "
         f"restore_s {rep['restore_s']:.4f} bytes {rep['snapshot_bytes']}")
-    log(f"  launches {counts} (expected {EXPECTED_LAUNCHES})")
+    log(f"  launches {counts} (expected {EXPECTED_LAUNCHES[arch]})")
     if not rep["match"]:
         raise AssertionError("the migrated continuation diverged")
     if not rep["logits_finite"]:
         raise AssertionError("non-finite logits")
-    if counts != EXPECTED_LAUNCHES:
-        raise AssertionError(f"launch counts {counts} != {EXPECTED_LAUNCHES}")
+    if counts != EXPECTED_LAUNCHES[arch]:
+        raise AssertionError(f"launch counts {counts} != {EXPECTED_LAUNCHES[arch]}")
     return {"counts": counts, **rep}
 
 
-def phase_profile(steps: int = 8) -> dict:
+def phase_profile(arch: str, steps: int = 8) -> dict:
     """Where the device time of the serving path goes, at the main path's
     shapes, over one prefill and over ``steps`` decode steps.  Each window is
     run twice: untraced, for its host-clock wall time, then under
@@ -356,7 +496,7 @@ def phase_profile(steps: int = 8) -> dict:
     from repro_torch.serve.engine import Engine
     from repro_torch.models import model as M
 
-    cfg = get_config("qwen2-0.5b")
+    cfg = get_config(arch)
     model = M.init_params(cfg, 0, "cuda")
     prompts = {"tokens": torch.as_tensor(
         np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 512)),
@@ -392,23 +532,27 @@ def phase_profile(steps: int = 8) -> dict:
                 f"x{n // per:<4d} {key[:90]}")
         out[name] = {"wall_ms": wall_s / per * 1e3, "busy_ms": busy_s / per * 1e3,
                      "busy_share": busy_s / wall_s}
+    del eng, model
+    torch.cuda.empty_cache()
     return out
 
 
-def phase_reference(steps: int = 8) -> dict:
-    """Reduced qwen2-0.5b in float32: the card's path against the CPU path."""
+def phase_reference(arch: str, prompt_len: int, max_seq: int, steps: int = 8) -> dict:
+    """A reduced model in float32: the card's path against the CPU path."""
     import numpy as np
     import torch
 
     from repro_torch.configs.base import get_config, reduced
     from repro_torch.models import model as M
 
-    cfg = reduced(get_config("qwen2-0.5b"))
-    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 24)).astype(np.int32)
+    cfg = reduced(get_config(arch))
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                               (2, prompt_len)).astype(np.int32)
     out = {}
     for device in ("cpu", "cuda"):
         lm = M.init_params(cfg, seed=0, device=device)
-        logits, cache = M.prefill(lm, cfg, {"tokens": torch.from_numpy(tokens).to(device)}, 64)
+        logits, cache = M.prefill(lm, cfg, {"tokens": torch.from_numpy(tokens).to(device)},
+                                  max_seq)
         toks, all_logits = [], [logits.cpu()]
         nxt = logits.argmax(-1).to(torch.int32)
         for _ in range(steps):
@@ -419,7 +563,8 @@ def phase_reference(steps: int = 8) -> dict:
         out[device] = (torch.stack(toks, 1), torch.stack(all_logits, 1))
     same = torch.equal(out["cpu"][0], out["cuda"][0])
     err = (out["cpu"][1] - out["cuda"][1]).abs().max().item()
-    log(f"  reduced qwen2 f32 cuda vs cpu: tokens equal={same} max logit err {err:.3g}")
+    log(f"  reduced {arch} f32 prompt {prompt_len}, cuda vs cpu: tokens equal={same} "
+        f"max logit err {err:.3g}")
     if not same or err > 1e-3 or not math.isfinite(err):
         raise AssertionError("the card's path disagrees with the CPU path")
     return {"tokens_equal": same, "max_logit_err": err}
@@ -671,13 +816,19 @@ def main() -> int:
     phase_build()
     log("phase 2 kernels against their plain versions")
     kern = phase_kernels()
-    log("phase 3 serve qwen2-0.5b at full width with snapshot/migrate/restore")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        serve_rep = phase_serve(tmp)
-    log("phase 4 reduced model: card against CPU")
-    phase_reference()
-    log("phase 5 where the serving path's device time goes (torch.profiler)")
-    phase_profile()
+    serve_rep = {}
+    for arch in SERVE_ARCHS:
+        log(f"phase 3 serve {arch} at full width with snapshot/migrate/restore")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            serve_rep[arch] = phase_serve(tmp, arch)
+    log("phase 4 reduced models: card against CPU")
+    phase_reference("qwen2-0.5b", 24, 64)
+    # 70 tokens: two chunks of the SSD kernel, the second ragged
+    phase_reference("zamba2-1.2b", 70, 96)
+    phase_reference("rwkv6-1.6b", 70, 96)
+    for arch in SERVE_ARCHS:
+        log(f"phase 5 where the serving path's device time goes (torch.profiler), {arch}")
+        phase_profile(arch)
     work = _work_dir()
     try:
         log("phase 6 the full-width train state: fingerprints, a profiled step, saves")
@@ -688,12 +839,13 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # launches over every main-path run of this script: the serve run and the
-    # three train runs (the checksum kernel is on no main path)
-    launches = {"flash": serve_rep["counts"]["flash"] + train_rep["counts"]["flash"],
-                "flash_decode": serve_rep["counts"]["flash_decode"],
-                "chunk_fingerprints": train_rep["counts"]["chunk_fingerprints"],
-                "checksum": 0}
+    # launches over every main-path run of this script: the three serve runs
+    # and the three train runs (the checksum kernel is on no main path)
+    launches = {k: sum(r["counts"][k] for r in serve_rep.values())
+                for k in ("flash", "flash_decode", "ssd", "wkv6")}
+    launches["flash"] += train_rep["counts"]["flash"]
+    launches["chunk_fingerprints"] = train_rep["counts"]["chunk_fingerprints"]
+    launches["checksum"] = 0
     sources = {"flash": ("src/repro_torch/csrc/flash_attention.cu",
                          "src/repro/kernels/flash_attention.py:75"),
                "flash_decode": ("src/repro_torch/csrc/decode_attention.cu",
@@ -701,7 +853,11 @@ def main() -> int:
                "chunk_fingerprints": ("src/repro_torch/csrc/checksum.cu",
                                       "src/repro/kernels/checksum.py:126"),
                "checksum": ("src/repro_torch/csrc/checksum.cu",
-                            "src/repro/kernels/checksum.py:61")}
+                            "src/repro/kernels/checksum.py:61"),
+               "ssd": ("src/repro_torch/csrc/ssd_scan.cu",
+                       "src/repro/kernels/_ssd_pallas.py:67"),
+               "wkv6": ("src/repro_torch/csrc/wkv6.cu",
+                        "src/repro/kernels/_rwkv6_pallas.py:64")}
     kernels = []
     for name, (src, replaces) in sources.items():
         r = kern[name]

@@ -1,9 +1,10 @@
 """Dispatch over the kernels, by the tensor's device.
 
 A CUDA tensor goes to the hand-written kernel (``flash`` for a sequence,
-``flash_decode`` for one token against a cache, ``chunk_fingerprints`` and
-``checksum`` for word streams); a CPU tensor goes to the plain version in
-``ref`` (each wrapper makes that choice).  ``impl`` keeps the reference
+``flash_decode`` for one token against a cache, ``ssd`` and ``wkv6`` for the
+SSM scans, ``chunk_fingerprints`` and ``checksum`` for word streams); a CPU
+tensor goes to the plain version in ``ref`` (each wrapper makes that
+choice).  ``impl`` keeps the reference
 package's names:
 
   auto, pallas       the kernel on CUDA, the plain version on the CPU
@@ -18,6 +19,8 @@ import torch
 
 from repro_torch.kernels import checksum as CK
 from repro_torch.kernels import decode_attention, flash_attention
+from repro_torch.kernels import ssd as SSD
+from repro_torch.kernels import wkv6 as WKV
 
 KERNEL_IMPLS = ("auto", "pallas")
 PLAIN_IMPLS = ("xla", "xla_chunked", "ref")
@@ -44,6 +47,32 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if kv_len is not None:
         raise ValueError("flash takes no kv_len; a prefill attends to its whole input")
     return flash_attention.flash(q, k, v, causal=causal, scale=scale)
+
+
+# ----------------------------------------------------------------------------------
+# SSM scans over a whole sequence (prefill); decode steps are plain PyTorch
+# (``ssd_scan.ssd_step``, ``rwkv6_scan.wkv6_step``), as in the reference
+# ----------------------------------------------------------------------------------
+
+
+def ssd(x, dt, A_log, Bm, Cm, D, *, chunk: int = 256, impl: str = "auto",
+        init_state=None, return_state: bool = False):
+    """Mamba2 SSD scan (contract of ``ref.ssd``).  ``chunk`` is accepted for
+    the reference's signature; neither path depends on it: the kernel's
+    chunk is its own constant and the plain version is the sequential
+    recurrence."""
+    _resolve(impl, x.device, "ssd")
+    return SSD.ssd(x, dt, A_log, Bm, Cm, D, init_state=init_state,
+                   return_state=return_state)
+
+
+def wkv6(r, k, v, w, u, *, impl: str = "auto", init_state=None,
+         return_state: bool = False, chunk: int = 128):
+    """RWKV6 WKV recurrence (contract of ``ref.wkv6``).  ``chunk`` is
+    accepted for the reference's signature; the kernel runs the recurrence
+    token by token, so neither path depends on it."""
+    _resolve(impl, r.device, "wkv6")
+    return WKV.wkv6(r, k, v, w, u, init_state=init_state, return_state=return_state)
 
 
 # ----------------------------------------------------------------------------------

@@ -2,14 +2,17 @@
 
 Each is the ground truth its CUDA kernel is held against on the card
 (``chip_smoke.py``, the ``gpu`` tests) and the path a wrapper takes for a
-tensor that lies on the CPU.  ``attention``, ``checksum`` and
-``chunk_fingerprints`` are here so far: the SSM oracles of
-``repro/kernels/ref.py`` come with their kernels.
+tensor that lies on the CPU: ``attention``, the two sequential SSM
+recurrences ``ssd`` (Mamba2) and ``wkv6`` (RWKV6), ``checksum`` and
+``chunk_fingerprints``, with the contracts of ``repro/kernels/ref.py``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .rwkv6_scan import wkv6_step
+from .ssd_scan import ssd_step
 
 PRIME = 16777619
 _M32 = 0xFFFFFFFF
@@ -46,6 +49,57 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.where(torch.isnan(p), torch.zeros_like(p), p)   # fully-masked rows
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+
+
+# ----------------------------------------------------------------------------------
+# Mamba2 SSD: sequential recurrence over time.
+# ----------------------------------------------------------------------------------
+
+
+def ssd(x, dt, A_log, Bm, Cm, D, *, init_state=None, return_state=False):
+    """Mamba2 selective-state-space recurrence, one step at a time, in fp32.
+
+    x:  (B,S,H,P)   channels grouped into H heads of dim P
+    dt: (B,S,H)     softplus-activated step sizes (already positive)
+    A_log: (H,)     state decay (A = -exp(A_log))
+    Bm: (B,S,N)     input matrix  (single group)
+    Cm: (B,S,N)     output matrix (single group)
+    D:  (H,)        skip
+    state: (B,H,P,N) fp32; y in x's dtype.
+    """
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    state = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.float())
+    ys = []
+    for t in range(S):
+        y_t, state = ssd_step(x[:, t], dt[:, t], A_log, Bm[:, t], Cm[:, t], D, state)
+        ys.append(y_t)
+    y = torch.stack(ys, dim=1) if ys else x.new_zeros(x.shape)
+    return (y, state) if return_state else y
+
+
+# ----------------------------------------------------------------------------------
+# RWKV6 WKV: sequential recurrence over time.
+# ----------------------------------------------------------------------------------
+
+
+def wkv6(r, k, v, w, u, *, init_state=None, return_state=False):
+    """RWKV6 recurrence, one step at a time, in fp32.
+
+    r,k,v: (B,S,H,D)    w: (B,S,H,D) per-step decay in (0,1)    u: (H,D) bonus.
+    state: (B,H,D,D)  maps k-dim -> v-dim.
+    y_t = r_t . (state + u*k_t v_t^T);  state' = diag(w_t) state + k_t v_t^T
+    """
+    B, S, H, D = r.shape
+    state = (torch.zeros((B, H, D, D), dtype=torch.float32, device=r.device)
+             if init_state is None else init_state.float())
+    ys = []
+    for t in range(S):
+        y_t, state = wkv6_step(r[:, t], k[:, t], v[:, t], w[:, t], u, state)
+        ys.append(y_t)
+    y = torch.stack(ys, dim=1) if ys else r.new_zeros(r.shape)
+    return (y, state) if return_state else y
 
 
 # ----------------------------------------------------------------------------------

@@ -1,0 +1,97 @@
+"""RWKV6 WKV recurrence: the CUDA kernel ``csrc/wkv6.cu``.
+
+Port of ``repro/kernels/_rwkv6_pallas.py::wkv6_pallas`` (a Pallas TPU
+kernel), with the contract of ``ref.wkv6``.  The kernel runs the recurrence
+token by token instead of the TPU kernel's chunked exp(+-cumulative decay)
+factorisation, which overflows at rwkv6's own decay initialisation (the
+source's header says more).  For tensors on the CPU the wrapper takes the
+plain version (``ref.wkv6``); for CUDA tensors it launches the kernel or
+raises.  There is no backward: a CUDA input that requires a gradient raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels.flash_attention import DTYPES
+
+HEAD_DIMS = (16, 32, 64, 128)     # head dims the kernel is instantiated for
+
+launches = 0      # kernel launches made by this wrapper
+
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        lib = _build.load("wkv6")
+        fn = lib.wkv6_fwd
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.wkv6_error_string.argtypes = [ctypes.c_int]
+        lib.wkv6_error_string.restype = ctypes.c_char_p
+        _fn = (fn, lib.wkv6_error_string)
+    return _fn
+
+
+def _check(r, k, v, w, u, init_state):
+    if r.ndim != 4:
+        raise ValueError("wkv6: r must be 4-d (B,S,H,D)")
+    B, S, H, D = r.shape
+    for name, t in (("k", k), ("v", v), ("w", w)):
+        if t.shape != r.shape:
+            raise ValueError(f"wkv6: {name} has shape {tuple(t.shape)}, r {tuple(r.shape)}")
+    if tuple(u.shape) != (H, D):
+        raise ValueError(f"wkv6: u has shape {tuple(u.shape)}, expected {(H, D)}")
+    if init_state is not None and tuple(init_state.shape) != (B, H, D, D):
+        raise ValueError(f"wkv6: init_state has shape {tuple(init_state.shape)}, "
+                         f"expected {(B, H, D, D)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"wkv6: head dim {D} not supported; supported: {HEAD_DIMS}")
+    if r.dtype not in DTYPES or any(t.dtype != r.dtype for t in (k, v, w)):
+        raise TypeError(f"wkv6: dtypes {r.dtype}/{k.dtype}/{v.dtype}/{w.dtype}; the kernel "
+                        "takes float32 or bfloat16, one dtype for r, k, v and w")
+    if not all(t.is_contiguous() for t in (r, k, v, w)):
+        raise ValueError("wkv6: r, k, v, w must be contiguous")
+    if r.numel() >= 2**62:
+        raise ValueError("wkv6: tensor too large")
+
+
+def wkv6(r, k, v, w, u, *, init_state=None, return_state=False):
+    """Contract of ``ref.wkv6``: r/k/v/w (B,S,H,D), u (H,D), init_state
+    (B,H,D,D) fp32 or None -> y (B,S,H,D) in r's dtype, and the fp32 final
+    state if ``return_state``."""
+    global launches
+    tensors = [t for t in (r, k, v, w, u, init_state) if t is not None]
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"wkv6: inputs on different devices {devices}")
+    if r.device.type == "cpu":
+        return ref.wkv6(r, k, v, w, u, init_state=init_state, return_state=return_state)
+    if r.device.type != "cuda":
+        raise ValueError(f"wkv6: no kernel for device {r.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError("wkv6: the CUDA kernel has no backward; training the SSM "
+                           "families is not ported yet")
+    _check(r, k, v, w, u, init_state)
+    B, S, H, D = r.shape
+    u = u.to(torch.float32).contiguous()
+    if init_state is not None:
+        init_state = init_state.to(torch.float32).contiguous()
+    y = torch.empty_like(r)
+    state = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
+    if r.numel() == 0:
+        state.copy_(init_state if init_state is not None else torch.zeros_like(state))
+        return (y, state) if return_state else y
+    fn, err_str = _kernel()
+    err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+             init_state.data_ptr() if init_state is not None else None,
+             y.data_ptr(), state.data_ptr(), B, S, H, D, DTYPES[r.dtype],
+             torch.cuda.current_stream(r.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"wkv6: kernel launch failed: {err_str(err).decode()}")
+    launches += 1
+    return (y, state) if return_state else y

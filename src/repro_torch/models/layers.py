@@ -35,7 +35,7 @@ def torch_dtype(name: str) -> torch.dtype:
 class ParamSpec:
     shape: tuple
     axes: tuple              # logical axis name (or None) per dim; len == len(shape)
-    init: str = "normal"     # normal | zeros | ones | embed | small
+    init: str = "normal"     # normal | zeros | ones | embed | small | ssm_a | decay
     scale: float = 1.0
 
     def __post_init__(self):
@@ -55,6 +55,10 @@ def _init_leaf(gen: torch.Generator, spec: ParamSpec, dtype) -> torch.Tensor:
         return (torch.randn(shape, generator=gen) * std).to(dtype)
     if spec.init in ("embed", "small"):
         return (torch.randn(shape, generator=gen) * (0.02 * spec.scale)).to(dtype)
+    if spec.init == "ssm_a":  # mamba2 A_log: log of Uniform[1, 16]
+        return torch.log(torch.rand(shape, generator=gen) * 15.0 + 1.0).to(dtype)
+    if spec.init == "decay":  # rwkv decay base, negative-ish
+        return (torch.randn(shape, generator=gen) * 0.5 - 1.0).to(dtype)
     raise ValueError(f"init {spec.init!r} is not ported")
 
 
@@ -99,6 +103,17 @@ def rms_norm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(dt)
+
+
+def group_norm(x: torch.Tensor, num_groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over the last dim, without affine (RWKV6's wkv output)."""
+    dt = x.dtype
+    *lead, d = x.shape
+    g = x.float().reshape(*lead, num_groups, d // num_groups)
+    mu = torch.mean(g, dim=-1, keepdim=True)
+    var = torch.var(g, dim=-1, keepdim=True, unbiased=False)
+    g = (g - mu) * torch.rsqrt(var + eps)
+    return g.reshape(*lead, d).to(dt)
 
 
 def linear_spec(d_in: int, d_out: int, in_ax, out_ax, bias: bool = False,

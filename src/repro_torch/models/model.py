@@ -1,4 +1,4 @@
-"""LM assembly for the dense plan: param specs, forward, prefill, decode.
+"""LM assembly: param specs, forward, prefill, decode.
 
 Parameters keep the reference package's tree, names and layout
 (``embed/table``, ``seg0/ln1/scale``, ``seg0/attn/wq/{w,b}``, ...), with the
@@ -6,10 +6,14 @@ layers of a segment stacked on a leading dimension, so checkpoints and tests
 compare like with like.  :class:`LM` holds them as an ``nn.Module`` whose
 parameter names are those paths with ``.`` for ``/``; the functions below
 take an ``LM`` or the nested dict itself.  Caches mirror the segment
-structure: ``{"seg0": {"k", "v"}: (L,B,S,Hkv,Dh), "t": int32 0-d}``.
+structure with the reference's paths, shapes and dtypes (``cache_specs``):
+``{"seg0": {"k", "v"}: (L,B,S,Hkv,Dh), "t": int32 0-d}`` for the dense plan,
+nested entries for zamba2's groups (``{"mamba": {"conv", "ssm"}, "shared_k",
+"shared_v"}``) and fp32 recurrent states for the SSM families.
 
-Only the dense plan (``attn_dense`` layers) is ported so far; other families
-raise ``NotImplementedError``.  Training differentiates ``loss_fn`` with
+Ported plans: dense GQA decoders (``attn_dense``), mamba2 with zamba2's
+shared-attention groups, and rwkv6; MoE, MLA, codebooks, image tokens and
+MTP raise ``NotImplementedError``.  Training differentiates ``loss_fn`` with
 autograd over a plain dict of tensors (``train/step.py``); the reference's
 layer remat (``jax.checkpoint``) only saves memory and is left out.
 """
@@ -38,10 +42,23 @@ class Segment:
 
 
 def layer_plan(cfg: ModelConfig) -> list[Segment]:
+    if cfg.mixer == "rwkv6":
+        return [Segment("rwkv6", cfg.num_layers)]
+    if cfg.mixer == "mamba2":
+        if cfg.shared_attn_period:
+            inner = cfg.shared_attn_period
+            groups = cfg.num_layers // inner
+            tail = cfg.num_layers - groups * inner
+            plan = [Segment("zamba_group", groups)]
+            if tail:
+                plan.append(Segment("mamba2", tail))
+            return plan
+        return [Segment("mamba2", cfg.num_layers)]
     if (cfg.mixer != "attn" or cfg.num_experts or cfg.num_codebooks
             or cfg.num_image_tokens or cfg.mtp_depth or cfg.shared_attn_period):
         raise NotImplementedError(
-            f"{cfg.name}: only dense GQA decoders are ported so far")
+            f"{cfg.name}: only dense GQA decoders, mamba2/zamba2 and rwkv6 are "
+            "ported so far")
     return [Segment("attn_dense", cfg.num_layers)]
 
 
@@ -53,8 +70,12 @@ def layer_plan(cfg: ModelConfig) -> list[Segment]:
 def param_specs(cfg: ModelConfig) -> dict:
     D, V = cfg.d_model, cfg.vocab_size
     specs: dict[str, Any] = {"embed": L.embedding_spec(V, D)}
+    if cfg.mixer == "rwkv6":
+        specs["ln0"] = L.rms_norm_spec(D)
     for i, seg in enumerate(layer_plan(cfg)):
         specs[f"seg{i}"] = BL.stacked(BL.block_spec(cfg, seg.kind), seg.count)
+    if cfg.shared_attn_period:
+        specs["shared_attn"] = BL.shared_attn_spec(cfg)
     specs["final_norm"] = L.rms_norm_spec(D)
     if not cfg.tie_embeddings:
         specs["head"] = ParamSpec((D, V), ("embed", "vocab"), "normal")
@@ -159,7 +180,11 @@ def params_tree(model: LM) -> dict:
 
 
 def embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    return L.embed(_tree(params)["embed"], batch["tokens"], L.torch_dtype(cfg.compute_dtype))
+    tree = _tree(params)
+    h = L.embed(tree["embed"], batch["tokens"], L.torch_dtype(cfg.compute_dtype))
+    if cfg.mixer == "rwkv6":
+        h = L.rms_norm(tree["ln0"], h, cfg.norm_eps)
+    return h
 
 
 def logits_fn(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
@@ -181,12 +206,14 @@ def forward_full(params, cfg: ModelConfig, batch: dict, *, want_cache=False, imp
     h = embed_inputs(tree, cfg, batch)
     B, S, _ = h.shape
     positions = torch.arange(S, device=h.device)[None].expand(B, S)
+    emb0 = h if cfg.shared_attn_period else None
+    shared_p = tree.get("shared_attn")
     caches = []
     for i, seg in enumerate(layer_plan(cfg)):
         entries = []
         for p in _layers(params, i, seg.count):
             h, c = BL.block_full(seg.kind, p, cfg, h, positions, want_cache=want_cache,
-                                 impl=impl)
+                                 emb0=emb0, shared_p=shared_p, impl=impl)
             entries.append(c)
         caches.append(entries)
     h = L.rms_norm(tree["final_norm"], h, cfg.norm_eps)
@@ -251,24 +278,28 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *, impl=None, z_loss: float =
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
-    """{path: (shape, dtype string)} of the cache tree, as nested dicts."""
+    """The cache tree's {name: (shape, dtype string)} leaves, as nested dicts
+    with the reference's paths: each segment's entry stacked on a leading
+    layer dimension, and ``t``."""
+    def expand(entry, count):
+        return {k: expand(v, count) if isinstance(v, dict) else ((count,) + v[0], v[1])
+                for k, v in entry.items()}
+
     specs: dict[str, Any] = {}
     for i, seg in enumerate(layer_plan(cfg)):
-        entry = BL.cache_entry_spec(cfg, seg.kind, batch, max_seq)
-        specs[f"seg{i}"] = {k: ((seg.count,) + shp, dt) for k, (shp, dt) in entry.items()}
+        specs[f"seg{i}"] = expand(BL.cache_entry_spec(cfg, seg.kind, batch, max_seq),
+                                  seg.count)
     specs["t"] = ((), "int32")
     return specs
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> dict:
-    out: dict[str, Any] = {}
-    for name, spec in cache_specs(cfg, batch, max_seq).items():
-        if name == "t":
-            out["t"] = torch.zeros((), dtype=torch.int32, device=device)
-        else:
-            out[name] = {k: torch.zeros(shp, dtype=L.torch_dtype(dt), device=device)
-                         for k, (shp, dt) in spec.items()}
-    return out
+    def make(spec):
+        if isinstance(spec, dict):
+            return {k: make(v) for k, v in spec.items()}
+        return torch.zeros(spec[0], dtype=L.torch_dtype(spec[1]), device=device)
+
+    return make(cache_specs(cfg, batch, max_seq))
 
 
 @torch.no_grad()
@@ -276,22 +307,31 @@ def decode_step(params, cfg: ModelConfig, tokens_new: torch.Tensor, cache: dict,
                 impl=None):
     """tokens_new: (B,) int.  Returns (fp32 logits (B,V), new cache).
 
-    The new cache holds the SAME k/v tensors as ``cache``, updated in place at
-    position ``cache["t"]``, and a new ``t``; the old ``t`` is left as it was."""
+    The new cache holds the SAME tensors as ``cache``, updated in place (the
+    attention caches at position ``cache["t"]``, the recurrent states by
+    copy), and a new ``t``; the old ``t`` is left as it was."""
     tree = _tree(params)
     t = cache["t"]
     h = embed_inputs(tree, cfg, {"tokens": tokens_new[:, None]})
+    emb0 = h if cfg.shared_attn_period else None
+    shared_p = tree.get("shared_attn")
     new_cache: dict[str, Any] = {}
     for i, seg in enumerate(layer_plan(cfg)):
         seg_c = cache[f"seg{i}"]
         for j, p in enumerate(_layers(params, i, seg.count)):
-            cj = {k: x[j] for k, x in seg_c.items()}
-            h, _ = BL.block_decode(seg.kind, p, cfg, h, cj, t, impl=impl)
+            h, _ = BL.block_decode(seg.kind, p, cfg, h, tree_map(lambda x, j=j: x[j], seg_c),
+                                   t, emb0=emb0, shared_p=shared_p, impl=impl)
         new_cache[f"seg{i}"] = seg_c
     h = L.rms_norm(tree["final_norm"], h, cfg.norm_eps)
     logits = logits_fn(tree, cfg, h)[:, 0]
     new_cache["t"] = t + 1
     return logits, new_cache
+
+
+def _place(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """The reference's ``place`` rule: an entry of the cache's own shape is
+    copied whole; a sequence-indexed one goes into the leading [0:S]."""
+    dst[tuple(slice(0, n) for n in src.shape)].copy_(src)
 
 
 @torch.no_grad()
@@ -303,8 +343,7 @@ def prefill(params, cfg: ModelConfig, batch: dict, max_seq: int, *, impl=None):
     full = init_cache(cfg, B, max_seq, tokens.device)
     for i, entries in enumerate(caches):
         for j, entry in enumerate(entries):
-            for k, x in entry.items():
-                full[f"seg{i}"][k][j, :, :S] = x
+            tree_map(lambda dst, src, j=j: _place(dst[j], src), full[f"seg{i}"], entry)
     full["t"] = torch.tensor(S, dtype=torch.int32, device=tokens.device)
     logits = logits_fn(params, cfg, h[:, -1:])[:, 0]   # h already final-normed
     return logits, full

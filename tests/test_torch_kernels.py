@@ -13,6 +13,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build, decode_attention, flash_attention, ops, ref
+from repro_torch.kernels import ssd as SSD
+from repro_torch.kernels import wkv6 as WKV
 
 TOL = {"float32": 2e-5, "bfloat16": 5e-2}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -142,6 +144,84 @@ def test_wrapper_checks_refuse_non_contiguous():
         flash_attention._check(q, k, k)
 
 
+def _ssd_args(B, S, H, P, N, dtype=torch.float32, device="cpu", seed=0):
+    """Inputs of tests/test_kernels.py::_mk_ssd's scales, made on ``device``;
+    dt, B and C in ``dtype``, A_log and D in float32, an fp32 initial state."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    x, Bm, Cm = rn(B, S, H, P) * 0.5, rn(B, S, N) * 0.5, rn(B, S, N) * 0.5
+    dt = rn(B, S, H).abs() * 0.5
+    args = (x.to(dtype), dt.to(dtype), rn(H) * 0.3, Bm.to(dtype), Cm.to(dtype),
+            torch.ones(H, device=device))
+    return args, rn(B, H, P, N) * 0.5
+
+
+def _wkv_args(B, S, H, D, dtype=torch.float32, device="cpu", seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    r, k, v = (rn(B, S, H, D) * 0.5 for _ in range(3))
+    w = torch.rand((B, S, H, D), generator=g, device=device) * 0.299 + 0.7
+    args = (r.to(dtype), k.to(dtype), v.to(dtype), w.to(dtype), rn(H, D) * 0.3)
+    return args, rn(B, H, D, D) * 0.5
+
+
+@pytest.mark.parametrize("wrapper,make", [(SSD.ssd, lambda: _ssd_args(1, 4, 2, 8, 8)[0]),
+                                          (WKV.wkv6, lambda: _wkv_args(1, 4, 2, 16)[0])])
+def test_scan_wrappers_refuse_other_devices(wrapper, make):
+    args = [t.to("meta") for t in make()]
+    with pytest.raises(ValueError, match="no kernel for device"):
+        wrapper(*args)
+
+
+def test_scan_ops_plain_impls_run_on_cpu():
+    args, st0 = _ssd_args(1, 9, 2, 8, 8)
+    want = ref.ssd(*args, init_state=st0)
+    for impl in ops.KERNEL_IMPLS + ops.PLAIN_IMPLS:
+        assert torch.equal(ops.ssd(*args, init_state=st0, impl=impl), want)
+    args, st0 = _wkv_args(1, 9, 2, 16)
+    want = ref.wkv6(*args, init_state=st0)
+    for impl in ops.KERNEL_IMPLS + ops.PLAIN_IMPLS:
+        assert torch.equal(ops.wkv6(*args, init_state=st0, impl=impl), want)
+    with pytest.raises(ValueError, match="not available"):
+        ops.wkv6(*args, impl="pallas_interpret")
+
+
+def test_scan_plain_versions_differentiate_on_cpu():
+    args, _ = _ssd_args(1, 6, 2, 8, 8)
+    x = args[0].clone().requires_grad_()
+    ops.ssd(x, *args[1:]).sum().backward()
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+
+
+@pytest.mark.parametrize("mutate,match", [
+    (lambda a: (a[0][:, :, :1],) + a[1:], "shape"),
+    (lambda a: (a[0].to(torch.float16),) + a[1:], "dtypes"),
+    (lambda a: (a[0].transpose(1, 2).contiguous().transpose(1, 2),) + a[1:], "contiguous"),
+])
+def test_ssd_check_refuses_what_the_kernel_does_not_take(mutate, match):
+    args, _ = _ssd_args(1, 4, 2, 8, 8)
+    with pytest.raises((ValueError, TypeError), match=match):
+        SSD._check(*mutate(args), None)
+
+
+@pytest.mark.parametrize("D,mutate,match", [
+    (16, lambda a: (a[0], a[1][:, :3]) + a[2:], "shape"),
+    (48, lambda a: a, "head dim"),
+    (16, lambda a: (a[0].to(torch.float16),) + a[1:], "dtypes"),
+    (16, lambda a: a[:4] + (a[4][:1],), "u has shape"),
+])
+def test_wkv6_check_refuses_what_the_kernel_does_not_take(D, mutate, match):
+    args, _ = _wkv_args(1, 4, 2, D)
+    with pytest.raises((ValueError, TypeError), match=match):
+        WKV._check(*mutate(args), None)
+
+
 def test_build_names_carry_a_source_digest(tmp_path, monkeypatch):
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
     for name in _build.SOURCES:
@@ -231,3 +311,82 @@ def test_flash_gradient_vs_plain(hopper, dtype):
     for got, w in zip(grads, want_grads):
         assert got.dtype == q.dtype and float(w.abs().max()) > 0
         assert float((got.float() - w).abs().max()) < TOL[dtype]
+
+
+def _rel_err(got, want) -> float:
+    """Largest error relative to the largest |plain| value (at least 1)."""
+    return float((got.float() - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+# bfloat16: the kernels round y to bfloat16, at most 2^-8 of |y|
+SCAN_TOL = {"ssd": {"float32": 5e-5, "bfloat16": 1e-2},
+            "wkv6": {"float32": 1e-4, "bfloat16": 1e-2}}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,P,N", [
+    (4, 512, 64, 64, 64),      # zamba2-1.2b's prefill
+    (2, 500, 3, 32, 16),       # ragged: the last chunk is short
+    (1, 37, 8, 32, 16),        # under one chunk (reduced zamba2's widths)
+    (2, 128, 2, 16, 64), (1, 1, 4, 8, 8),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssd_kernel_vs_plain(hopper, B, S, H, P, N, dtype, with_state):
+    args, st0 = _ssd_args(B, S, H, P, N, TDT[dtype], "cuda")
+    st0 = st0 if with_state else None
+    n = SSD.launches
+    y, st = SSD.ssd(*args, init_state=st0, return_state=True)
+    y2, st2 = SSD.ssd(*args, init_state=st0, return_state=True)
+    assert SSD.launches == n + 2
+    want, wst = ref.ssd(*(a.float() for a in args), init_state=st0, return_state=True)
+    assert y.dtype == TDT[dtype] and st.dtype == torch.float32
+    assert _rel_err(y, want) < SCAN_TOL["ssd"][dtype]
+    assert _rel_err(st, wst) < SCAN_TOL["ssd"][dtype]
+    assert torch.equal(y, y2) and torch.equal(st, st2)    # no atomics: the same bits
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,D", [
+    (4, 512, 32, 64),          # rwkv6-1.6b's prefill
+    (2, 500, 3, 32),           # ragged: the last tile is short
+    (1, 12, 4, 32), (2, 96, 1, 16), (1, 70, 2, 128), (1, 1, 2, 64),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_wkv6_kernel_vs_plain(hopper, B, S, H, D, dtype, with_state):
+    args, st0 = _wkv_args(B, S, H, D, TDT[dtype], "cuda")
+    st0 = st0 if with_state else None
+    n = WKV.launches
+    y, st = WKV.wkv6(*args, init_state=st0, return_state=True)
+    y2, st2 = WKV.wkv6(*args, init_state=st0, return_state=True)
+    assert WKV.launches == n + 2
+    want, wst = ref.wkv6(*(a.float() for a in args), init_state=st0, return_state=True)
+    assert y.dtype == TDT[dtype] and st.dtype == torch.float32
+    assert _rel_err(y, want) < SCAN_TOL["wkv6"][dtype]
+    assert _rel_err(st, wst) < SCAN_TOL["wkv6"][dtype]
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+
+
+@pytest.mark.gpu
+def test_scan_kernels_raise_under_autograd(hopper):
+    args, _ = _ssd_args(1, 8, 2, 8, 8, device="cuda")
+    x = args[0].clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        SSD.ssd(x, *args[1:])
+    args, _ = _wkv_args(1, 8, 2, 16, device="cuda")
+    u = args[4].clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        WKV.wkv6(*args[:4], u)
+    with torch.no_grad():                   # serving: no gradient wanted
+        WKV.wkv6(*args[:4], u)
+
+
+@pytest.mark.gpu
+def test_scan_ops_refuse_the_plain_version_on_cuda(hopper):
+    args, _ = _ssd_args(1, 8, 2, 8, 8, device="cuda")
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        ops.ssd(*args, impl="xla")
+    args, _ = _wkv_args(1, 8, 2, 16, device="cuda")
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        ops.wkv6(*args, impl="ref")
