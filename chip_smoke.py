@@ -10,11 +10,15 @@ Phases, in order; any failure exits non-zero:
 2. kernels: each kernel against its plain PyTorch version on the card, at the
    main paths' shapes and a few others, with the tolerances of the reference
    package's kernel tests (attention 2e-5 float32, 5e-2 bfloat16, against the
-   plain version in float32; the SSM scans 5e-5 (SSD) and 1e-4 (WKV6) in
+   plain version in float32, and in bfloat16 also element by element within
+   atol + 1e-2 |plain|, atol 5e-3 for flash and 1e-4 for flash_decode; the SSM scans 5e-5 (SSD) and 1e-4 (WKV6) in
    float32 and 1e-2 in bfloat16, at the main widths relative to each
-   output's largest |plain| value; the integer checksum kernels bit for bit), the flash
-   kernel's gradient under autograd, and kernel, plain, library (timed only)
-   and bound times at the main paths' shapes;
+   output's largest |plain| value; the integer checksum kernels bit for bit),
+   with bit-equal reruns, the flash kernel's gradient under autograd, and at
+   every main-path shape of each kernel: its device time and the library
+   call's (torch.profiler's kernel time per call, median/min/max of 5), its
+   call time (back-to-back calls between CUDA events, bounded by the host),
+   the plain version's time (events) and the bound;
 3. serve: ``repro_torch.launch.serve`` at full width and depth with a
    snapshot, migration and restore half way, for qwen2-0.5b, zamba2-1.2b and
    rwkv6-1.6b in turn; each continuation must match the unmigrated run bit
@@ -36,8 +40,10 @@ Phases, in order; any failure exits non-zero:
    on the same loss and the same chunk hashes, and the launch counts must
    show every attention and every save's fingerprinting on the kernels.
 
-It prints a ``kernels`` JSON line and the card's name and power limit before
-the last line, and as the last line ``{"ok": true, "device": {...}}``.
+It prints a ``kernel_shapes`` JSON line (every timed shape with its launches
+on the main paths), a ``kernels`` JSON line (each kernel at its first shape)
+and the card's name and power limit before the last line, and as the last
+line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -60,6 +66,13 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 # the checksum kernels' 32-bit integer operations (the guide lists no int32 rate)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "uint32": 67e12}
 TOL = {"float32": 2e-5, "bfloat16": 5e-2}
+# bfloat16 attention also element by element: |kernel - plain| <= atol + rtol
+# |plain|.  rtol covers the output's rounding to bfloat16 (at most 2^-8 of
+# |plain|); atol what the arithmetic adds: flash's P rounded to bfloat16
+# before P V (a CPU model of it needs 1.8e-3-2.4e-3), decode's fp32 sums.  A
+# typical |plain| is 0.03-0.14 at the main shapes, so TOL alone would hide a
+# lost split.
+ATTN_BF16_TOL = {"flash": (5e-3, 1e-2), "flash_decode": (1e-4, 1e-2)}
 L2_BYTES = 50 * 2**20
 
 SERVE_ARGV = ["--batch", "4", "--prompt-len", "512", "--gen", "32", "--max-seq", "1024",
@@ -97,8 +110,11 @@ def card_line() -> str:
 
 
 def timed_ms(fn, inputs, iters: int = 20) -> float:
-    """Mean device time of ``fn(*inputs[i % len(inputs)])`` by CUDA events,
-    after a warm-up; ``inputs`` rotates over enough copies to exceed L2."""
+    """Mean time per call of ``fn(*inputs[i % len(inputs)])`` over ``iters``
+    back-to-back calls between two CUDA events, after a warm-up; ``inputs``
+    rotates over enough copies to exceed L2.  It reads the device only while
+    the device is slower than the host issuing the calls, so for a short
+    kernel it is the wrapper's cost (reported as ``call_ms``)."""
     import torch
 
     for i in range(3):
@@ -112,6 +128,83 @@ def timed_ms(fn, inputs, iters: int = 20) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def attn_check(kernel: str, got, want, dtn: str) -> tuple[float, float, bool]:
+    """(max |got - want|; the atol that the element-wise comparison needs at
+    the kernel's bfloat16 rtol, 0 for float32; whether both are within their
+    limits and every value is finite)."""
+    import torch
+
+    err = (got.float() - want).abs()
+    atol, rtol = ATTN_BF16_TOL[kernel] if dtn == "bfloat16" else (0.0, 0.0)
+    excess = (err - rtol * want.abs()).max().item() if dtn == "bfloat16" else 0.0
+    ok = err.max().item() <= TOL[dtn] and excess <= atol and bool(torch.isfinite(got).all())
+    return err.max().item(), excess, ok
+
+
+def _excess_note(kernel: str, excess: float, dtn: str) -> str:
+    if dtn != "bfloat16":
+        return ""
+    atol, rtol = ATTN_BF16_TOL[kernel]
+    return f", beyond {rtol}|plain| {excess:.3g} (atol {atol})"
+
+
+def spread(values) -> dict:
+    vals = sorted(values)
+    return {"median": vals[len(vals) // 2], "min": vals[0], "max": vals[-1]}
+
+
+MARKER = "spin"        # the kernel of torch.cuda._sleep, which separates timed runs
+
+
+def device_ms(fn, inputs, iters: int = 20, repeats: int = 5) -> dict:
+    """Device time per call of ``fn``: under one ``torch.profiler`` window,
+    ``repeats`` runs of ``iters`` calls, each run between two marker kernels;
+    a run's time is the summed device time of the CUDA kernels (and copies)
+    between its markers, over ``iters``.  Median, min and max of the runs.
+    The host's issue rate does not enter it.  A device event's time is its
+    duration, which is what ``self_device_time_total`` reports for it unless
+    the profiler flags the event async (then it reads 0; seen for the SSD
+    scan's launches), so the durations are summed.  The window starts with
+    warm-up calls, because the profiler can miss a window's first launches;
+    a window whose runs do not show equal event counts, or show no device
+    time, is taken again (at most twice) and then fails."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(3):
+                fn(*inputs[i % len(inputs)])
+            torch.cuda.synchronize()
+            for _ in range(repeats):
+                torch.cuda._sleep(1000)
+                for i in range(iters):
+                    fn(*inputs[i % len(inputs)])
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(events) if MARKER in e.name]
+        runs = [events[a + 1:b] for a, b in zip(marks[-repeats - 1:], marks[-repeats:])]
+        counts = {len(r) for r in runs}
+        per_call = [sum(e.time_range.elapsed_us() for e in r) / 1e3 / iters for r in runs]
+        if (len(runs) == repeats and len(counts) == 1 and counts.pop() % iters == 0
+                and min(per_call) > 0):
+            return spread(per_call)
+        log(f"    (profiler window {attempt + 1}: {len(marks)} markers, run event counts "
+            f"{[len(r) for r in runs]}; taken again)")
+    raise AssertionError("the profiler did not see every timed launch in three windows")
+
+
+def call_ms(fn, inputs, repeats: int = 5) -> dict:
+    return spread([timed_ms(fn, inputs) for _ in range(repeats)])
+
+
+def fmt(st: dict) -> str:
+    return f"{st['median']:.4f} [{st['min']:.4f}, {st['max']:.4f}]"
 
 
 def copies_past_l2(tensors) -> list:
@@ -150,8 +243,19 @@ def _randn(shape, dtype, gen):
     return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
 
 
+# main-path shapes of the attention kernels, with the run whose launches
+# they carry: (label, B, S, H, Hkv, D, launch source)
+FLASH_SHAPES = [("qwen2-0.5b prefill", 4, 512, 14, 2, 64, "qwen2-0.5b"),
+                ("zamba2-1.2b shared block", 4, 512, 32, 32, 64, "zamba2-1.2b"),
+                ("qwen2-0.5b train forward", 8, 128, 14, 2, 64, "train")]
+DECODE_SHAPES = [("qwen2-0.5b decode", 4, 1024, 14, 2, 64, "qwen2-0.5b"),
+                 ("zamba2-1.2b decode", 4, 1024, 32, 32, 64, "zamba2-1.2b")]
+DECODE_KV_LEN = 544      # the serve phases' last position: prompt 512 + 32
+
+
 def phase_kernels() -> dict:
-    """Every kernel against its plain version; timings at the main path's shape."""
+    """Every kernel against its plain version; device times at the main
+    paths' shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -165,8 +269,13 @@ def phase_kernels() -> dict:
     flash_cases = [  # B, S, H, Hkv, Dq, Dv, dtype, causal
         (4, 512, 14, 2, 64, 64, "bfloat16", True),     # the main path's prefill
         (4, 512, 32, 32, 64, 64, "bfloat16", True),    # zamba2's shared attention, G=1
-        (2, 300, 14, 2, 64, 64, "float32", True),      # ragged length
-        (1, 256, 8, 1, 128, 64, "float32", False),     # Dq != Dv, not causal
+        (8, 128, 14, 2, 64, 64, "bfloat16", True),     # the train forward
+        *[(2, n, 14, 2, 64, 64, "bfloat16", True) for n in (1, 17, 63, 65, 300)],  # ragged
+        (1, 256, 8, 1, 128, 64, "bfloat16", False),    # Dq != Dv, not causal
+        (1, 100, 4, 4, 32, 128, "bfloat16", True),
+        (1, 64, 4, 2, 192, 128, "bfloat16", True),     # MLA prefill head dims
+        (2, 300, 14, 2, 64, 64, "float32", True),      # ragged, the CUDA-core kernel
+        (1, 256, 8, 1, 128, 64, "float32", False),
     ]
     worst = 0.0
     for B, S, H, Hkv, Dq, Dv, dtn, causal in flash_cases:
@@ -174,32 +283,43 @@ def phase_kernels() -> dict:
         k = _randn((B, S, Hkv, Dq), dt[dtn], gen)
         v = _randn((B, S, Hkv, Dv), dt[dtn], gen)
         got = flash_attention.flash(q, k, v, causal=causal)
+        again = flash_attention.flash(q, k, v, causal=causal)
         want = ref.attention(q.float(), k.float(), v.float(), causal=causal)
         torch.cuda.synchronize()
-        err = (got.float() - want).abs().max().item()
-        ok = err <= TOL[dtn] and bool(torch.isfinite(got).all())
+        err, excess, ok = attn_check("flash", got, want, dtn)
+        same = torch.equal(got, again)
+        ok = ok and same
         log(f"  flash B{B} S{S} H{H} Hkv{Hkv} Dq{Dq} Dv{Dv} {dtn} causal={causal}: "
-            f"max_abs_err {err:.3g} (tol {TOL[dtn]}) {'ok' if ok else 'FAIL'}")
+            f"max_abs_err {err:.3g} (tol {TOL[dtn]}){_excess_note('flash', excess, dtn)} "
+            f"repeatable={same} {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"flash disagrees with its plain version: {err}")
+            raise AssertionError(f"flash disagrees with its plain version: {err}, {excess}")
         worst = max(worst, err)
-    B, S, H, Hkv, D, _, dtn, _ = flash_cases[0]
-    sets = copies_past_l2([_randn(s, dt[dtn], gen) for s in
-                           ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D))])
-    ms = timed_ms(lambda q, k, v: flash_attention.flash(q, k, v, causal=True), sets)
-    plain_ms = timed_ms(lambda q, k, v: ref.attention(q, k, v, causal=True), sets)
-    lib_sets = [tuple(t.transpose(1, 2) for t in s) for s in sets]
-    library_ms = timed_ms(lambda q, k, v: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), lib_sets)
+    shapes = []
     elt = 2
-    nbytes = elt * (2 * B * S * H * D + 2 * B * S * Hkv * D)
-    flops = 2 * B * H * (S * (S + 1) // 2) * (D + D)
-    b_ms, b_by = bound(nbytes, flops, dtn)
-    report["flash"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                           library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
-                           shape=f"B{B} S{S} H{H} Hkv{Hkv} D{D} {dtn} causal")
-    log(f"  flash timing ({report['flash']['shape']}): kernel_ms {ms:.4f} "
-        f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} bound_ms {b_ms:.5f} ({b_by})")
+    for label, B, S, H, Hkv, D, source in FLASH_SHAPES:
+        sets = copies_past_l2([_randn(s, torch.bfloat16, gen) for s in
+                               ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D))])
+
+        def kern(q, k, v):
+            return flash_attention.flash(q, k, v, causal=True)
+
+        lib_sets = [tuple(t.transpose(1, 2) for t in s) for s in sets]
+
+        def lib(q, k, v):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+        nbytes = elt * (2 * B * S * H * D + 2 * B * S * Hkv * D)
+        flops = 2 * B * H * (S * (S + 1) // 2) * (D + D)
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        shapes.append(dict(
+            kernel="flash", label=label, source=source,
+            shape=f"B{B} S{S} H{H} Hkv{Hkv} D{D} bfloat16 causal",
+            ms=device_ms(kern, sets), call_ms=call_ms(kern, sets),
+            library_ms=device_ms(lib, lib_sets),
+            plain_ms=timed_ms(lambda q, k, v: ref.attention(q, k, v, causal=True), sets),
+            bound_ms=b_ms, bound_by=b_by))
+    report["flash"] = dict(max_abs_err=worst, shapes=shapes)
 
     # ---- flash_decode ------------------------------------------------------
     decode_cases = [  # B, S, H, Hkv, D, dtype, kv_lens
@@ -207,6 +327,9 @@ def phase_kernels() -> dict:
         (4, 1024, 32, 32, 64, "bfloat16", (1, 300, 544)),        # zamba2's shared attention
         (2, 512, 8, 2, 64, "float32", (77,)),
     ]
+    for B, S, H, Hkv, D, dtn, _ in decode_cases[:2]:       # the split boundaries, and 0
+        sp = decode_attention.split_size(S)
+        decode_cases.append((B, S, H, Hkv, D, dtn, (0, sp - 1, sp, sp + 1, S)))
     worst = 0.0
     for B, S, H, Hkv, D, dtn, kv_lens in decode_cases:
         q = _randn((B, 1, H, D), dt[dtn], gen)
@@ -219,35 +342,50 @@ def phase_kernels() -> dict:
                                  kv_len=kv_len)
             again = decode_attention.flash_decode(q, k, v, kv_len=kvl)
             torch.cuda.synchronize()
-            err = (got.float() - want).abs().max().item()
+            err, excess, ok = attn_check("flash_decode", got, want, dtn)
             same = torch.equal(got, again)
-            ok = err <= TOL[dtn] and same and bool(torch.isfinite(got).all())
+            ok = ok and same
             log(f"  flash_decode B{B} S{S} H{H} Hkv{Hkv} D{D} {dtn} kv_len={kv_len}: "
-                f"max_abs_err {err:.3g} (tol {TOL[dtn]}) repeatable={same} "
+                f"max_abs_err {err:.3g} (tol {TOL[dtn]})"
+                f"{_excess_note('flash_decode', excess, dtn)} repeatable={same} "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"flash_decode disagrees with its plain version: {err}")
+                raise AssertionError(
+                    f"flash_decode disagrees with its plain version: {err}, {excess}")
             worst = max(worst, err)
-    B, S, H, Hkv, D, dtn, _ = decode_cases[0]
-    kv_len = 544
+    shapes = []
+    kv_len = DECODE_KV_LEN
     kvl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
-    sets = copies_past_l2([_randn(s, dt[dtn], gen) for s in
-                           ((B, 1, H, D), (B, S, Hkv, D), (B, S, Hkv, D))])
-    ms = timed_ms(lambda q, k, v: decode_attention.flash_decode(q, k, v, kv_len=kvl), sets)
-    plain_ms = timed_ms(lambda q, k, v: ref.attention(q, k, v, causal=False, kv_len=kvl),
-                        sets)
-    lib_sets = [(q.transpose(1, 2), k[:, :kv_len].transpose(1, 2),
-                 v[:, :kv_len].transpose(1, 2)) for q, k, v in sets]
-    library_ms = timed_ms(lambda q, k, v: F.scaled_dot_product_attention(
-        q, k, v, enable_gqa=True), lib_sets)
-    nbytes = elt * (2 * B * H * D + 2 * B * kv_len * Hkv * D) + 4
-    flops = 2 * B * H * kv_len * (D + D)
-    b_ms, b_by = bound(nbytes, flops, dtn)
-    report["flash_decode"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                                  library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
-                                  shape=f"B{B} S{S} H{H} Hkv{Hkv} D{D} {dtn} kv_len={kv_len}")
-    log(f"  flash_decode timing ({report['flash_decode']['shape']}): kernel_ms {ms:.4f} "
-        f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} bound_ms {b_ms:.6f} ({b_by})")
+    for label, B, S, H, Hkv, D, source in DECODE_SHAPES:
+        sets = copies_past_l2([_randn(s, torch.bfloat16, gen) for s in
+                               ((B, 1, H, D), (B, S, Hkv, D), (B, S, Hkv, D))])
+
+        def kern(q, k, v):
+            return decode_attention.flash_decode(q, k, v, kv_len=kvl)
+
+        lib_sets = [(q.transpose(1, 2), k[:, :kv_len].transpose(1, 2),
+                     v[:, :kv_len].transpose(1, 2)) for q, k, v in sets]
+
+        def lib(q, k, v):
+            return F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
+
+        nbytes = elt * (2 * B * H * D + 2 * B * kv_len * Hkv * D) + 4
+        flops = 2 * B * H * kv_len * (D + D)
+        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        shapes.append(dict(
+            kernel="flash_decode", label=label, source=source,
+            shape=f"B{B} S{S} H{H} Hkv{Hkv} D{D} bfloat16 kv_len={kv_len} "
+                  f"({decode_attention.num_splits(S)} splits)",
+            ms=device_ms(kern, sets), call_ms=call_ms(kern, sets),
+            library_ms=device_ms(lib, lib_sets),
+            plain_ms=timed_ms(lambda q, k, v: ref.attention(q, k, v, causal=False,
+                                                            kv_len=kvl), sets),
+            bound_ms=b_ms, bound_by=b_by))
+    report["flash_decode"] = dict(max_abs_err=worst, shapes=shapes)
+    for r in report["flash"]["shapes"] + shapes:
+        log(f"  {r['kernel']} timing, {r['label']} ({r['shape']}): device ms {fmt(r['ms'])}"
+            f"  call_ms {fmt(r['call_ms'])}  library device ms {fmt(r['library_ms'])}"
+            f"  plain_ms {r['plain_ms']:.4f}  bound_ms {r['bound_ms']:.6f} ({r['bound_by']})")
 
     # ---- flash under autograd: kernel forward, plain backward (training) ----
     B, S, H, Hkv, D, dtn = 8, 128, 14, 2, 64, "bfloat16"
@@ -315,19 +453,20 @@ def _checksum_kernels(gen) -> dict:
     body = torch.randn(519 * cw, generator=gen, device="cuda").view(torch.int32)
     nchunks = body.numel() // cw
     out = {}
-    for name, fn, plain, out_bytes in (
+    for name, fn, plain, out_bytes, source in (
             ("chunk_fingerprints", lambda w: CK.chunk_fingerprints(w, cw),
-             lambda w: ref.chunk_fingerprints(w, cw), 4 * nchunks),
+             lambda w: ref.chunk_fingerprints(w, cw), 4 * nchunks, "train"),
             ("checksum", lambda w: CK.checksum(w, block=2048),
-             lambda w: ref.checksum(w), 4)):
-        ms = timed_ms(fn, [(body,)])
-        plain_ms = timed_ms(plain, [(body,)], iters=3)
+             lambda w: ref.checksum(w), 4, None)):
         b_ms, b_by = bound(4 * body.numel() + out_bytes, 6 * body.numel(), "uint32")
-        out[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
-                         bound_ms=b_ms, bound_by=b_by,
-                         shape=f"{body.numel()} words (519 x 1 MiB) int32")
-        log(f"  {name} timing ({out[name]['shape']}): kernel_ms {ms:.4f} plain_ms "
-            f"{plain_ms:.4f} library_ms none bound_ms {b_ms:.5f} ({b_by})")
+        r = dict(kernel=name, label="qwen2-0.5b embed table", source=source,
+                 shape=f"{body.numel()} words (519 x 1 MiB) int32",
+                 ms=device_ms(fn, [(body,)]), call_ms=call_ms(fn, [(body,)]), library_ms=None,
+                 plain_ms=timed_ms(plain, [(body,)], iters=3), bound_ms=b_ms, bound_by=b_by)
+        out[name] = dict(max_abs_err=0.0, shapes=[r])
+        log(f"  {name} timing ({r['shape']}): device ms {fmt(r['ms'])}  call_ms "
+            f"{fmt(r['call_ms'])}  plain_ms {r['plain_ms']:.4f}  library none  "
+            f"bound_ms {b_ms:.5f} ({b_by})")
     return out
 
 
@@ -378,6 +517,7 @@ def _scan_kernels(gen) -> dict:
 
     dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}
     kernels = {"ssd": (SSD.ssd, ref.ssd), "wkv6": (WKV.wkv6, ref.wkv6)}
+    sources = {"ssd": "zamba2-1.2b", "wkv6": "rwkv6-1.6b"}
     # shape, dtype, with an initial state, and whether the error is taken
     # relative to each output's max |plain| (the main widths over 500+ tokens,
     # where |y| reaches ~20) or absolute (the reference's test shapes)
@@ -399,6 +539,7 @@ def _scan_kernels(gen) -> dict:
     }
     out = {}
     for name, (kernel, plain) in kernels.items():
+        source = sources[name]
         worst = 0.0
         for shape, dtn, with_state, relative in cases[name]:
             args, st0 = _scan_inputs(name, shape, dt[dtn], gen, with_state)
@@ -425,7 +566,10 @@ def _scan_kernels(gen) -> dict:
         shape, dtn = cases[name][0][:2]
         args, _ = _scan_inputs(name, shape, dt[dtn], gen, False)
         sets = copies_past_l2(args)
-        ms = timed_ms(lambda *a: kernel(*a, return_state=True), sets)
+
+        def kern(*a):
+            return kernel(*a, return_state=True)
+
         plain_ms = timed_ms(lambda *a: plain(*a, return_state=True), sets, iters=3)
         elt = args[0].element_size()
         if name == "ssd":
@@ -437,12 +581,14 @@ def _scan_kernels(gen) -> dict:
             nbytes = elt * 5 * B * S * H * D + 4 * H * D + 4 * B * H * D * D
             flops = B * S * H * (4 * D * D + 5 * D)
         b_ms, b_by = bound(nbytes, flops, dtn)
-        out[name] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=None,
-                         bound_ms=b_ms, bound_by=b_by,
-                         shape=f"{'x'.join(map(str, shape))} {dtn}, final state out")
-        log(f"  {name} timing ({out[name]['shape']}): kernel_ms {ms:.4f} plain_ms "
-            f"{plain_ms:.4f} library_ms none bound_ms {b_ms:.5f} ({b_by}; "
-            f"{nbytes} bytes, {flops} flops)")
+        r = dict(kernel=name, label=f"{source} prefill", source=source,
+                 shape=f"{'x'.join(map(str, shape))} {dtn}, final state out",
+                 ms=device_ms(kern, sets), call_ms=call_ms(kern, sets), library_ms=None,
+                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        out[name] = dict(max_abs_err=worst, shapes=[r])
+        log(f"  {name} timing ({r['shape']}): device ms {fmt(r['ms'])}  call_ms "
+            f"{fmt(r['call_ms'])}  plain_ms {plain_ms:.4f}  library none  bound_ms "
+            f"{b_ms:.5f} ({b_by}; {nbytes} bytes, {flops} flops)")
     return out
 
 
@@ -841,11 +987,8 @@ def main() -> int:
 
     # launches over every main-path run of this script: the three serve runs
     # and the three train runs (the checksum kernel is on no main path)
-    launches = {k: sum(r["counts"][k] for r in serve_rep.values())
-                for k in ("flash", "flash_decode", "ssd", "wkv6")}
-    launches["flash"] += train_rep["counts"]["flash"]
-    launches["chunk_fingerprints"] = train_rep["counts"]["chunk_fingerprints"]
-    launches["checksum"] = 0
+    runs = {arch: r["counts"] for arch, r in serve_rep.items()}
+    runs["train"] = train_rep["counts"]
     sources = {"flash": ("src/repro_torch/csrc/flash_attention.cu",
                          "src/repro/kernels/flash_attention.py:75"),
                "flash_decode": ("src/repro_torch/csrc/decode_attention.cu",
@@ -858,14 +1001,21 @@ def main() -> int:
                        "src/repro/kernels/_ssd_pallas.py:67"),
                "wkv6": ("src/repro_torch/csrc/wkv6.cu",
                         "src/repro/kernels/_rwkv6_pallas.py:64")}
-    kernels = []
+    kernels, per_shape = [], []
     for name, (src, replaces) in sources.items():
         r = kern[name]
+        for sh in r["shapes"]:
+            per_shape.append({**sh, "launches": runs.get(sh["source"], {}).get(name, 0)})
+        first = r["shapes"][0]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": launches[name],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                        "launches": sum(c.get(name, 0) for c in runs.values()),
+                        "max_abs_err": r["max_abs_err"], "ms": first["ms"]["median"],
+                        "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+                        "bound_by": first["bound_by"],
+                        "library_ms": first["library_ms"] and first["library_ms"]["median"]})
+    # every timed shape with its launches on the main paths (ms and library_ms:
+    # device time, median/min/max of 5; call_ms: back-to-back calls by events)
+    print(json.dumps({"kernel_shapes": per_shape}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,5 @@
-// Shared helpers for the attention kernels (built with nvcc into one shared
-// library per source, plain C interface, loaded through ctypes).
+// Shared helpers for the kernels (built with nvcc into one shared library
+// per source, plain C interface, loaded through ctypes).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -23,6 +23,25 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
+}
+
+// 16-byte asynchronous copy from device memory to shared memory (sm_80+),
+// bypassing L1.  With valid == false it reads nothing and fills the 16
+// bytes with zeros (src-size 0), so a ragged edge needs no branch around
+// the copy; src must still be a mapped address.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace rt

@@ -6,6 +6,13 @@ kernel reads ``kv_len`` from a device int32, so a decode loop never syncs
 the host.  For a tensor on the CPU the wrapper takes the plain version
 (``ref.attention``); for a CUDA tensor it launches the kernel or raises.
 MLA's absorbed decode shape (Hkv=1, Dq=576, Dv=512) is not supported yet.
+
+The kernel splits the cache over ``num_splits`` CTAs per (batch, kv head),
+then a second launch on the same stream combines their partials in a fixed
+order (the source's header says how).  The split depends on the cache's
+length alone: never on ``kv_len``, which stays on the device, and never on
+the card, so a cache restored on another card decodes to the same bits.
+The partials go to a workspace allocated for each call.
 """
 from __future__ import annotations
 
@@ -18,8 +25,10 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels.flash_attention import DTYPES, SUPPORTED_DIMS
 
 MAX_SMEM_BYTES = 232448     # dynamic shared memory a block may use on Hopper
+SPLIT_TILE = 64             # cache positions per kernel tile; a split is a multiple
+MAX_SPLITS = 32             # splits per (batch, kv head) before a split grows (and the .cu's)
 
-launches = 0      # kernel launches made by this wrapper
+launches = 0      # calls that launched the kernel pair (split, then combine)
 
 _fn = None
 
@@ -29,15 +38,29 @@ def _kernel():
     if _fn is None:
         lib = _build.load("decode_attention")
         fn = lib.decode_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.decode_attention_error_string.argtypes = [ctypes.c_int]
         lib.decode_attention_error_string.restype = ctypes.c_char_p
-        lib.decode_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.decode_attention_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.decode_attention_smem_bytes.restype = ctypes.c_longlong
         _fn = (fn, lib.decode_attention_error_string, lib.decode_attention_smem_bytes)
     return _fn
+
+
+def split_size(S: int) -> int:
+    """Cache positions per split: one tile up to S = 2048, then as many
+    tiles as keep the count at MAX_SPLITS."""
+    return SPLIT_TILE * max(1, -(-S // (SPLIT_TILE * MAX_SPLITS)))
+
+
+def num_splits(S: int) -> int:
+    """Splits per (batch, kv head) for a cache of S positions.  It takes no
+    kv_len: a decode step never asks the host how far the cache is filled.
+    At qwen2-0.5b's serving shape (S 1024) it is 16, a grid of 16 x Hkv x B
+    CTAs."""
+    return max(1, -(-S // split_size(S)))
 
 
 def _kv_len_tensor(kv_len, S: int, device) -> torch.Tensor:
@@ -73,6 +96,8 @@ def _check(q, k, v):
                         "takes float32 or bfloat16, one dtype for q, k and v")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_decode: q, k, v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_decode: q, k, v must start on a 16-byte boundary")
     if max(t.numel() for t in (q, k, v)) >= 2**62:
         raise ValueError("flash_decode: tensor too large")
 
@@ -101,12 +126,15 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out.numel() == 0:
         return out
     fn, err_str, smem_bytes = _kernel()
-    if smem_bytes(Dq, Dv, H // Hkv) > MAX_SMEM_BYTES:
-        raise ValueError(f"flash_decode: group of {H // Hkv} heads at Dq={Dq}, Dv={Dv} "
+    G = H // Hkv
+    if smem_bytes(Dq, Dv, G, q.element_size()) > MAX_SMEM_BYTES:
+        raise ValueError(f"flash_decode: group of {G} heads at Dq={Dq}, Dv={Dv} "
                          "needs more shared memory than a block has")
+    ns = num_splits(S)
+    part = torch.empty(B * Hkv * ns * G * (Dv + 2), dtype=torch.float32, device=q.device)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kvl.data_ptr(), out.data_ptr(),
-             B, S, H, Hkv, Dq, Dv, DTYPES[q.dtype], float(scale),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             part.data_ptr(), B, S, H, Hkv, Dq, Dv, DTYPES[q.dtype], split_size(S), ns,
+             float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_decode: kernel launch failed: {err_str(err).decode()}")
     launches += 1

@@ -58,6 +58,8 @@ def _check(q, k, v):
                         "takes float32 or bfloat16, one dtype for q, k and v")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash: q, k, v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash: q, k, v must start on a 16-byte boundary")
     if max(t.numel() for t in (q, k, v)) >= 2**62:
         raise ValueError("flash: tensor too large")
 
@@ -65,6 +67,11 @@ def _check(q, k, v):
 def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
           causal: bool = True, scale=None) -> torch.Tensor:
     """q: (B,Sq,H,Dq); k: (B,Skv,Hkv,Dq); v: (B,Skv,Hkv,Dv) -> (B,Sq,H,Dv).
+
+    On the card the dtype picks the kernel: bfloat16 runs on the tensor
+    cores (P rounded to bfloat16 before P V, fp32 accumulation), float32 on
+    the CUDA cores in exact fp32.  Both are the kernel; neither stands in
+    for the other, and a failure of either raises.
 
     Differentiable: where a CUDA input requires a gradient, the kernel's
     output carries a backward (``_Flash``)."""

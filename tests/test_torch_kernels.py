@@ -4,8 +4,11 @@ On the CPU the port's wrappers take their plain versions (``kernels/ref.py``);
 they are held against ``repro``'s ``flash`` and ``flash_decode`` run in
 interpret mode, on the cases of tests/test_kernels.py plus qwen2-0.5b's head
 grouping (H=14, Hkv=2, G=7), with that file's tolerances (2e-5 float32, 5e-2
-bfloat16).  The CUDA kernels themselves are held against the plain versions
-by the ``gpu`` tests at the end, which run only on an H100.
+bfloat16).  Test-local models of the CUDA kernels' own arithmetic (P rounded
+to bfloat16 before P V; split-KV partials and their fixed-order combine) are
+held against the same Pallas kernels.  The CUDA kernels themselves are held
+against the plain versions by the ``gpu`` tests at the end, which run only
+on an H100.
 """
 import numpy as np
 import pytest
@@ -83,6 +86,150 @@ def test_decode_vs_pallas_flash_decode(jax_kernels, rng, B, H, Hkv, Dq, Dv, S, k
     assert torch.equal(decode_attention.flash_decode(q, k, v, kv_len=kv_len), got)
 
 
+# ---- the CUDA kernels' arithmetic, modelled on the CPU against repro ----------
+
+def _tc_flash_model(q, k, v, *, causal=True, block=64):
+    """The bfloat16 tensor-core flash kernel's arithmetic (csrc/flash_attention.cu,
+    flash_fwd_bf16_kernel) in plain torch: fp32 scores, an online softmax over
+    tiles of ``block`` keys, P rounded to bfloat16 before P V, fp32
+    accumulation, l summing the unrounded P and floored at 1e-30, the
+    output rounded to q's dtype."""
+    B, Sq, H, Dq = q.shape
+    Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // Hkv
+    scale = 1.0 / np.sqrt(Dq)
+    kf = k.float().repeat_interleave(G, dim=2)
+    vf = v.float().repeat_interleave(G, dim=2)
+    qf = q.float()
+    m = torch.full((B, H, Sq), -1e30)
+    l = torch.zeros(B, H, Sq)
+    acc = torch.zeros(B, H, Sq, Dv)
+    qpos = torch.arange(Sq)[:, None]
+    for k0 in range(0, Skv, block):
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, k0:k0 + block]) * scale
+        kpos = torch.arange(k0, min(k0 + block, Skv))[None, :]
+        if causal:
+            s = s.masked_fill(kpos > qpos, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        pv = torch.einsum("bhqk,bkhd->bhqd", p.to(torch.bfloat16).float(),
+                          vf[:, k0:k0 + block])
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,Dq,Dv", [
+    (2, 256, 4, 2, 64, 64), (1, 128, 8, 1, 128, 64), (2, 128, 4, 4, 32, 32),
+    (1, 512, 2, 2, 64, 64), (2, 128, 14, 2, 64, 64),
+])
+def test_tensor_core_flash_numerics_vs_pallas_flash(jax_kernels, rng, B, S, H, Hkv, Dq, Dv):
+    """The tensor-core kernel rounds P to bfloat16 before P V, where the
+    reference keeps it in fp32.  Its arithmetic, modelled here, stays within
+    the bfloat16 tolerance of repro's flash on the cases of
+    test_attention_vs_pallas_flash: worst error 1.56e-2 of the 5e-2 allowed
+    (a CPU run of these cases), one bfloat16 rounding of the output."""
+    (qj, kj, vj), (q, k, v) = _mk(rng, B, S, S, H, Hkv, Dq, Dv, "bfloat16")
+    want = jax_kernels[0](qj, kj, vj, causal=True, block_q=64, block_k=64, interpret=True)
+    got = _tc_flash_model(q, k, v, causal=True)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (B, S, H, Dv)
+    assert _err(got, want) < TOL["bfloat16"]
+
+
+def _split_decode_model(q, k, v, kv_len):
+    """The split-KV decode kernel's arithmetic (csrc/decode_attention.cu) in
+    plain torch: per split of ``decode_attention.split_size(S)`` positions a
+    partial (m, l, acc) with an fp32 online softmax over 64-position tiles,
+    then the combine over the active splits in split order, out = acc /
+    max(l, 1e-30) in q's dtype."""
+    B, _, H, Dq = q.shape
+    S, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // Hkv
+    split = decode_attention.split_size(S)
+    ns = decode_attention.num_splits(S)
+    assert ns * split >= S
+    scale = 1.0 / np.sqrt(Dq)
+    qf = q.float().reshape(B, Hkv, G, Dq)
+    kf, vf = k.float(), v.float()
+    parts = []
+    for s0 in range(0, ns * split, split):
+        end = min(s0 + split, kv_len)
+        if s0 >= end:
+            continue                       # reads nothing, adds nothing
+        m = torch.full((B, Hkv, G), -1e30)
+        l = torch.zeros(B, Hkv, G)
+        acc = torch.zeros(B, Hkv, G, Dv)
+        for k0 in range(s0, end, 64):
+            sc = torch.einsum("bkgd,bskd->bkgs", qf, kf[:, k0:k0 + 64]) * scale
+            pos = torch.arange(k0, min(k0 + 64, S))
+            sc = sc.masked_fill(pos >= end, -1e30)
+            m_new = torch.maximum(m, sc.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(sc - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum("bkgs,bskd->bkgd", p, vf[:, k0:k0 + 64])
+            m = m_new
+        parts.append((m, l, acc))
+    m_star = torch.full((B, Hkv, G), -1e30)
+    for m, _, _ in parts:
+        m_star = torch.maximum(m_star, m)
+    l_sum = torch.zeros(B, Hkv, G)
+    acc_sum = torch.zeros(B, Hkv, G, Dv)
+    for m, l, acc in parts:                # split order 0, 1, ...
+        w = torch.exp(m - m_star)
+        l_sum = l_sum + l * w
+        acc_sum = acc_sum + acc * w[..., None]
+    out = acc_sum / torch.clamp(l_sum, min=1e-30)[..., None]
+    return out.reshape(B, 1, H, Dv).to(q.dtype)
+
+
+@pytest.mark.parametrize("B,H,Hkv,Dq,Dv,S", [
+    (2, 8, 2, 64, 64, 512), (1, 16, 1, 128, 64, 256), (4, 4, 4, 32, 32, 128),
+    (4, 14, 2, 64, 64, 256),               # qwen2-0.5b grouping, G = 7
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_decode_numerics_vs_pallas_flash_decode(jax_kernels, rng, B, H, Hkv, Dq, Dv,
+                                                      S, dtype):
+    """Split partials and the fixed-order combine, modelled here with the
+    wrapper's own split_size / num_splits, against repro's flash_decode at
+    kv_len 0, 1, on each side of the first split boundary, and S: worst
+    error 4.77e-7 in float32 and 0 in bfloat16 (a CPU run of these cases)."""
+    (qj, kj, vj), (q, k, v) = _mk(rng, B, 1, S, H, Hkv, Dq, Dv, dtype)
+    split = decode_attention.split_size(S)
+    for kvl in (0, 1, split - 1, split, split + 1, S):
+        want = jax_kernels[1](qj, kj, vj, kv_len=kvl, block_k=128, interpret=True)
+        got = _split_decode_model(q, k, v, kvl)
+        assert got.dtype == TDT[dtype] and tuple(got.shape) == (B, 1, H, Dv)
+        assert _err(got, want) < TOL[dtype], kvl
+
+
+def test_num_splits_depends_on_the_cache_shape_alone():
+    import inspect
+
+    # the cache's length alone: no kv_len (a decode step never syncs the
+    # host), no batch, head count or group size (G = 7, 1 and 32 alike)
+    assert list(inspect.signature(decode_attention.num_splits).parameters) == ["S"]
+    for S in (1, 64, 65, 1024, 4096, 4097, 32768):
+        split = decode_attention.split_size(S)
+        ns = decode_attention.num_splits(S)
+        assert split % 64 == 0 and ns * split >= S > (ns - 1) * split
+        assert ns <= decode_attention.MAX_SPLITS
+    assert decode_attention.num_splits(1024) == 16     # 16 x 2 x 4 = 128 CTAs at qwen2's shape
+
+
+def test_max_splits_is_the_kernels():
+    """The combine kernel's loops run to the source's MAX_SPLITS and its C
+    entry refuses more splits: the wrapper's limit must be the same number."""
+    import re
+    from pathlib import Path
+
+    src = (Path(decode_attention.__file__).parents[1] / "csrc" / "decode_attention.cu").read_text()
+    assert re.findall(r"constexpr int MAX_SPLITS = (\d+);", src) == [str(decode_attention.MAX_SPLITS)]
+
+
 def test_ref_fully_masked_rows_are_zero():
     q, k, v = (torch.randn(1, 1, 2, 32), torch.randn(1, 8, 1, 32), torch.randn(1, 8, 1, 32))
     out = ref.attention(q, k, v, causal=False, kv_len=0)
@@ -135,6 +282,17 @@ def test_wrapper_checks_refuse_what_the_kernel_does_not_take(check, shapes, dtyp
     q, k, v = (torch.zeros(s, dtype=dtype) for s in shapes)
     with pytest.raises((ValueError, TypeError), match=match):
         check(q, k, v)
+
+
+@pytest.mark.parametrize("check", [flash_attention._check, decode_attention._check])
+def test_wrapper_checks_refuse_unaligned_starts(check):
+    """The kernels copy rows in 16-byte pieces (cp.async), so every tensor
+    must start on a 16-byte boundary; a contiguous view 4 bytes in does not."""
+    q = torch.zeros(1, 1, 4, 32)
+    k = torch.zeros(1 + 8 * 2 * 32)[1:].view(1, 8, 2, 32)
+    assert k.is_contiguous() and k.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        check(q, k, k)
 
 
 def test_wrapper_checks_refuse_non_contiguous():
@@ -241,6 +399,19 @@ def hopper():
     return torch.device("cuda")
 
 
+# bfloat16 attention, element by element: |kernel - plain| <= atol + rtol |plain|,
+# beside the absolute TOL.  rtol covers the output's rounding to bfloat16 (at
+# most 2^-8 of |plain|); atol what the arithmetic adds: flash's P rounded to
+# bfloat16 before P V (a CPU model of it needs 1.8e-3-2.4e-3), decode's fp32
+# sums.  A typical |plain| is 0.03-0.14 at the main shapes.
+ATTN_BF16_TOL = {"flash": (5e-3, 1e-2), "flash_decode": (1e-4, 1e-2)}
+
+
+def _excess(got, want, rtol) -> float:
+    """The largest |got - want| - rtol |want|: the atol the comparison needs."""
+    return float(((got.float() - want).abs() - rtol * want.abs()).max())
+
+
 def _cuda_inputs(B, Sq, Skv, H, Hkv, Dq, Dv, dtype, seed=0):
     g = torch.Generator(device="cuda").manual_seed(seed)
     return [torch.randn(s, generator=g, device="cuda").to(TDT[dtype]) for s in
@@ -254,6 +425,13 @@ def _cuda_inputs(B, Sq, Skv, H, Hkv, Dq, Dv, dtype, seed=0):
     (1, 256, 8, 1, 128, 64, False),
     (1, 100, 4, 4, 32, 128, True),
     (1, 64, 4, 2, 192, 128, True),     # MLA prefill shape
+    (8, 128, 14, 2, 64, 64, True),     # the train forward
+    (4, 512, 32, 32, 64, 64, True),    # zamba2-1.2b's shared block, G = 1
+    (2, 1, 14, 2, 64, 64, True),       # ragged against the 64-row tiles
+    (2, 17, 14, 2, 64, 64, True),
+    (2, 63, 14, 2, 64, 64, True),
+    (2, 65, 14, 2, 64, 64, True),
+    (2, 300, 14, 2, 64, 64, False),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel_vs_plain(hopper, B, S, H, Hkv, Dq, Dv, causal, dtype):
@@ -264,12 +442,21 @@ def test_flash_kernel_vs_plain(hopper, B, S, H, Hkv, Dq, Dv, causal, dtype):
     want = ref.attention(q.float(), k.float(), v.float(), causal=causal)
     assert got.dtype == q.dtype
     assert float((got.float() - want).abs().max()) < TOL[dtype]
+    if dtype == "bfloat16":
+        atol, rtol = ATTN_BF16_TOL["flash"]
+        assert _excess(got, want, rtol) <= atol
+    assert torch.equal(flash_attention.flash(q, k, v, causal=causal), got)   # no atomics
+    assert flash_attention.launches == n + 2
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,H,Hkv,D,kvl", [
     (4, 1024, 14, 2, 64, 1), (4, 1024, 14, 2, 64, 300), (4, 1024, 14, 2, 64, 1024),
     (2, 512, 8, 2, 64, 77), (1, 256, 32, 1, 128, 200),
+    # the split boundaries (64 positions a split at S = 1024), and an empty cache
+    (4, 1024, 14, 2, 64, 63), (4, 1024, 14, 2, 64, 64), (4, 1024, 14, 2, 64, 65),
+    (4, 1024, 14, 2, 64, 0),
+    (4, 1024, 32, 32, 64, 544), (4, 1024, 32, 32, 64, 65),    # zamba2-1.2b, G = 1
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_decode_kernel_vs_plain(hopper, B, S, H, Hkv, D, kvl, dtype):
@@ -281,7 +468,10 @@ def test_flash_decode_kernel_vs_plain(hopper, B, S, H, Hkv, D, kvl, dtype):
     assert decode_attention.launches == n + 2
     want = ref.attention(q.float(), k.float(), v.float(), causal=False, kv_len=kvl)
     assert float((got.float() - want).abs().max()) < TOL[dtype]
-    assert torch.equal(got, again)           # no atomics: the same bits every run
+    if dtype == "bfloat16":
+        atol, rtol = ATTN_BF16_TOL["flash_decode"]
+        assert _excess(got, want, rtol) <= atol
+    assert torch.equal(got, again)           # fixed combine order: the same bits every run
 
 
 @pytest.mark.gpu
