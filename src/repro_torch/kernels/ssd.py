@@ -1,10 +1,12 @@
-"""Mamba2 SSD scan: the CUDA kernel ``csrc/ssd_scan.cu``.
+"""Mamba2 SSD scan: the CUDA kernels of ``csrc/ssd_scan.cu``.
 
 Port of ``repro/kernels/_ssd_pallas.py::ssd_pallas`` (a Pallas TPU kernel),
-with the contract of ``ref.ssd``.  The source's header says how the Hopper
-design differs from the TPU one.  For tensors on the CPU the wrapper takes
-the plain version (``ref.ssd``, the sequential recurrence); for CUDA tensors
-it launches the kernel or raises.  There is no backward: the reference has
+with the contract of ``ref.ssd``.  The dtype picks the kernel: bfloat16 runs
+the tensor-core chunked scan (64 columns of P per CTA, N up to 128), float32
+the CUDA-core one (exact fp32 sums).  The source's header
+says how the Hopper design differs from the TPU one.  For tensors on the
+CPU the wrapper takes the plain version (``ref.ssd``, the sequential
+recurrence); for CUDA tensors it launches the kernel or raises.  There is no backward: the reference has
 no backward kernel for this scan, and training the SSM families is later
 work, so a CUDA input that requires a gradient raises.
 """
@@ -13,12 +15,14 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.decode_attention import MAX_SMEM_BYTES
 from repro_torch.kernels.flash_attention import DTYPES
 
 launches = 0      # kernel launches made by this wrapper
+MAX_N_BF16 = 128  # the bfloat16 kernel's widest state (N padded to 16, 32, 64 or 128)
 
 _fn = None
 
@@ -54,6 +58,8 @@ def _check(x, dt, A_log, Bm, Cm, D, init_state):
     if x.dtype not in DTYPES or any(t.dtype != x.dtype for t in (dt, Bm, Cm)):
         raise TypeError(f"ssd: dtypes x {x.dtype} dt {dt.dtype} Bm {Bm.dtype} Cm {Cm.dtype}; "
                         "the kernel takes float32 or bfloat16, one dtype for the four")
+    if x.dtype == torch.bfloat16 and N > MAX_N_BF16:
+        raise ValueError(f"ssd: the bfloat16 kernel takes N up to {MAX_N_BF16}, got {N}")
     if not all(t.is_contiguous() for t in (x, dt, Bm, Cm)):
         raise ValueError("ssd: x, dt, Bm, Cm must be contiguous")
     if max(t.numel() for t in (x, Bm)) >= 2**62:
@@ -84,19 +90,35 @@ def ssd(x, dt, A_log, Bm, Cm, D, *, init_state=None, return_state=False):
     D = D.to(torch.float32).contiguous()
     if init_state is not None:
         init_state = init_state.to(torch.float32).contiguous()
-    y = torch.empty_like(x)
-    state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     if x.numel() == 0:
-        state.copy_(init_state if init_state is not None else torch.zeros_like(state))
-        return (y, state) if return_state else y
+        state = (init_state.clone() if init_state is not None else
+                 torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device))
+        return (torch.empty_like(x), state) if return_state else torch.empty_like(x)
     fn, err_str, smem_bytes = _kernel()
-    if smem_bytes(P, N) > MAX_SMEM_BYTES:
-        raise ValueError(f"ssd: P={P}, N={N} need more shared memory than a block has")
+    Pk, Nk = P, N
+    if x.dtype == torch.float32:
+        if smem_bytes(P, N) > MAX_SMEM_BYTES:
+            raise ValueError(f"ssd: P={P}, N={N} need more shared memory than a block has")
+    else:
+        # the bfloat16 kernel copies rows in 16-byte pieces (cp.async): P and
+        # N are zero-padded to multiples of 8 (a zero column of x or of B and
+        # C adds exact zeros), and a view off a 16-byte boundary is copied
+        Pk, Nk = -(-P // 8) * 8, -(-N // 8) * 8
+        if (Pk, Nk) != (P, N):
+            x = F.pad(x, (0, Pk - P))
+            Bm, Cm = F.pad(Bm, (0, Nk - N)), F.pad(Cm, (0, Nk - N))
+            if init_state is not None:
+                init_state = F.pad(init_state, (0, Nk - N, 0, Pk - P))
+        x, Bm, Cm = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, Bm, Cm))
+    y = torch.empty_like(x)
+    state = torch.empty((B, H, Pk, Nk), dtype=torch.float32, device=x.device)
     err = fn(x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
              D.data_ptr(), init_state.data_ptr() if init_state is not None else None,
-             y.data_ptr(), state.data_ptr(), B, S, H, P, N, DTYPES[x.dtype],
+             y.data_ptr(), state.data_ptr(), B, S, H, Pk, Nk, DTYPES[x.dtype],
              torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"ssd: kernel launch failed: {err_str(err).decode()}")
     launches += 1
+    if (Pk, Nk) != (P, N):
+        y, state = y[..., :P].contiguous(), state[:, :, :P, :N].contiguous()
     return (y, state) if return_state else y

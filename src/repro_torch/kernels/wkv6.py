@@ -1,12 +1,15 @@
-"""RWKV6 WKV recurrence: the CUDA kernel ``csrc/wkv6.cu``.
+"""RWKV6 WKV recurrence: the CUDA kernels of ``csrc/wkv6.cu``.
 
 Port of ``repro/kernels/_rwkv6_pallas.py::wkv6_pallas`` (a Pallas TPU
-kernel), with the contract of ``ref.wkv6``.  The kernel runs the recurrence
-token by token instead of the TPU kernel's chunked exp(+-cumulative decay)
-factorisation, which overflows at rwkv6's own decay initialisation (the
-source's header says more).  For tensors on the CPU the wrapper takes the
-plain version (``ref.wkv6``); for CUDA tensors it launches the kernel or
-raises.  There is no backward: a CUDA input that requires a gradient raises.
+kernel), with the contract of ``ref.wkv6``.  The dtype picks the kernel:
+bfloat16 runs a tensor-core chunked form whose every decay is 2^(cw_a -
+cw_b) with cw_a <= cw_b, so no factor exceeds 1 (64 state columns per CTA,
+or D if less); float32 runs the recurrence token by token on the CUDA
+cores.  Neither takes the TPU kernel's exp(-cumulative decay) factor, which
+overflows at rwkv6's own decay initialisation (the source's header says
+more).  For tensors on the CPU the wrapper takes the plain version
+(``ref.wkv6``); for CUDA tensors it launches the kernel or raises.  There
+is no backward: a CUDA input that requires a gradient raises.
 """
 from __future__ import annotations
 
@@ -86,6 +89,10 @@ def wkv6(r, k, v, w, u, *, init_state=None, return_state=False):
     if r.numel() == 0:
         state.copy_(init_state if init_state is not None else torch.zeros_like(state))
         return (y, state) if return_state else y
+    if r.dtype == torch.bfloat16:
+        # the bfloat16 kernel copies rows in 16-byte pieces (cp.async); a view
+        # that starts off a 16-byte boundary is copied to one that starts on one
+        r, k, v, w = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (r, k, v, w))
     fn, err_str = _kernel()
     err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
              init_state.data_ptr() if init_state is not None else None,

@@ -236,6 +236,295 @@ def test_ref_fully_masked_rows_are_zero():
     assert torch.equal(out, torch.zeros_like(out))
 
 
+# ---- the bfloat16 scans' tensor-core arithmetic, modelled on the CPU -----------
+
+def _rb(t):
+    """Round to bfloat16 and back: the kernels' rounding points."""
+    return t.to(torch.bfloat16).float()
+
+
+def tc_ssd_model(x, dt, A_log, Bm, Cm, D, *, init_state=None, chunk=64, p_slice=64):
+    """The bfloat16 SSD kernel's arithmetic (csrc/ssd_scan.cu, ssd_tc_kernel)
+    in plain torch: per slice of ``p_slice`` columns of P and per chunk of
+    ``chunk`` tokens (the last one ragged), cA = cumsum(dt A) from the chunk
+    start; G = C B^T in fp32; S_ij = G_ij exp(cA_i - cA_j) dt_j taken for
+    j <= i only and rounded to bfloat16; y = S x + exp(cA_i) C state^T + D x
+    with the state rounded to bfloat16 as an operand; w x = exp(cA_last -
+    cA_j) dt_j x_j rounded to bfloat16; state = state exp(cA_last) + (w x)^T B
+    in fp32.  y in x's dtype, the state in fp32.  ``p_slice`` defaults to the
+    kernel's PS."""
+    Bz, S, H, P = x.shape
+    xf, dtf, Bf, Cf = (t.float() for t in (x, dt, Bm, Cm))
+    A = -torch.exp(A_log.float())
+    Df = D.float()[None, None, :, None]
+    state = (torch.zeros(Bz, H, P, Bm.shape[-1]) if init_state is None
+             else init_state.float().clone())
+    y = torch.empty(Bz, S, H, P)
+    for p0 in range(0, P, p_slice):
+        st = state[:, :, p0:p0 + p_slice].clone()
+        for t0 in range(0, S, chunk):
+            L = min(chunk, S - t0)
+            xs, d = xf[:, t0:t0 + L, :, p0:p0 + p_slice], dtf[:, t0:t0 + L]
+            Bc, Cc = Bf[:, t0:t0 + L], Cf[:, t0:t0 + L]
+            cA = torch.cumsum(d * A, dim=1)                                  # (B,L,H)
+            G = torch.einsum("bin,bjn->bij", Cc, Bc)
+            diff = cA[:, :, None] - cA[:, None, :]                           # (B,i,j,H)
+            lower = torch.ones(L, L, dtype=torch.bool).tril()[None, :, :, None]
+            decay = torch.exp(torch.where(lower, diff, torch.full_like(diff, -float("inf"))))
+            Sm = _rb(G[..., None] * decay * d[:, None])
+            yc = (torch.einsum("bijh,bjhp->bihp", Sm, xs)
+                  + torch.exp(cA)[..., None] * torch.einsum("bin,bhpn->bihp", Cc, _rb(st))
+                  + xs * Df)
+            y[:, t0:t0 + L, :, p0:p0 + p_slice] = yc
+            last = cA[:, -1]
+            wx = _rb((torch.exp(last[:, None] - cA) * d)[..., None] * xs)
+            st = st * torch.exp(last)[..., None, None] + torch.einsum("bjhp,bjn->bhpn", wx, Bc)
+        state[:, :, p0:p0 + p_slice] = st
+    return y.to(x.dtype), state
+
+
+def tc_wkv6_model(r, k, v, w, u, *, init_state=None, chunk=32, sub=8, v_slice=64):
+    """The bfloat16 WKV6 kernel's arithmetic (csrc/wkv6.cu, wkv6_tc_kernel) in
+    plain torch: per slice of ``v_slice`` state columns and per chunk of
+    ``chunk`` tokens (sub-blocks of ``sub``), w clamped at 1e-30 and cw_t =
+    sum_{s<=t} log2 w_s from the chunk start.  r_dec_i = r_i 2^cw_{i-1} and
+    k_carry_j = k_j 2^(cw_last - cw_j) rounded to bfloat16.  The scores A:
+    inside a sub-block, A_ij = sum_k r_ik k_jk prod_{j<t<i} w_tk (j < i) and
+    the bonus sum_k r_ik u_k k_ik on the diagonal, in fp32; below it, against
+    sub-block J with m its last token, r~_i = r_i 2^(cw_{i-1} - cw_m) and k~_j
+    = k_j 2^(cw_m - cw_j), rounded to bfloat16, and A_ij = r~_i . k~_j.  Every
+    exponent is <= 0.  A rounded to bfloat16; y = A v + r_dec State with the
+    state rounded to bfloat16 as an operand; State = diag(2^cw_last) State +
+    k_carry^T v in fp32.  ``v_slice`` defaults to the kernel's VS (at most
+    D)."""
+    Bz, S, H, Dh = r.shape
+    v_slice = min(v_slice, Dh)
+    rf, kf, vf = (t.float() for t in (r, k, v))
+    wf = torch.clamp(w.float(), min=1e-30)
+    uf = u.float()
+    state = (torch.zeros(Bz, H, Dh, Dh) if init_state is None
+             else init_state.float().clone())
+    y = torch.empty(Bz, S, H, Dh)
+    for v0 in range(0, Dh, v_slice):
+        st = state[..., v0:v0 + v_slice].clone()
+        for t0 in range(0, S, chunk):
+            L = min(chunk, S - t0)
+            rc, kc, wc = rf[:, t0:t0 + L], kf[:, t0:t0 + L], wf[:, t0:t0 + L]
+            vc = vf[:, t0:t0 + L, :, v0:v0 + v_slice]
+            cw = torch.cumsum(torch.log2(wc), 1)                       # (B,L,H,D)
+            cw_prev = torch.cat([torch.zeros_like(cw[:, :1]), cw[:, :-1]], 1)
+            Am = torch.zeros(Bz, L, L, H)
+            for i in range(L):
+                Am[:, i, i] = (rc[:, i] * uf * kc[:, i]).sum(-1)
+                dec = torch.ones_like(wc[:, 0])
+                for j in range(i - 1, (i // sub) * sub - 1, -1):
+                    Am[:, i, j] = (rc[:, i] * kc[:, j] * dec).sum(-1)
+                    dec = dec * wc[:, j]
+            for j0 in range(0, L - sub, sub):
+                m = j0 + sub - 1
+                ktil = _rb(kc[:, j0:m + 1] * torch.exp2(cw[:, m:m + 1] - cw[:, j0:m + 1]))
+                rtil = _rb(rc[:, m + 1:] * torch.exp2(cw_prev[:, m + 1:] - cw[:, m:m + 1]))
+                Am[:, m + 1:, j0:m + 1] = torch.einsum("bihk,bjhk->bijh", rtil, ktil)
+            last = cw[:, -1:]
+            yc = (torch.einsum("bijh,bjhv->bihv", _rb(Am), vc)
+                  + torch.einsum("bihk,bhkv->bihv", _rb(rc * torch.exp2(cw_prev)), _rb(st)))
+            y[:, t0:t0 + L, :, v0:v0 + v_slice] = yc
+            st = (torch.exp2(last[:, 0])[..., None] * st
+                  + torch.einsum("bjhk,bjhv->bhkv", _rb(kc * torch.exp2(last - cw)), vc))
+        state[..., v0:v0 + v_slice] = st
+    return y.to(r.dtype), state
+
+
+# bfloat16 scans, element by element: |got - oracle| <= atol + rtol |oracle|
+# per output, beside SCAN_TOL's 1e-2 of the output's max |oracle|.  rtol
+# covers y's rounding to bfloat16; atol what the arithmetic adds (S, w x,
+# r_dec, k_carry, A and the state operand rounded to bfloat16).  The CPU
+# models need at most: SSD y 9.1e-3, state 1.3e-3 (B1 S512 H4 P64 N64);
+# WKV6 y 3.5e-2, state 3.2e-3 (D128); about twice that is the limit.
+SCAN_BF16_TOL = {"ssd": {"y": (2e-2, 1e-2), "state": (4e-3, 1e-2)},
+                 "wkv6": {"y": (7e-2, 1e-2), "state": (8e-3, 1e-2)}}
+
+
+def scan_bf16_errors(kind, got, gst, want, wst):
+    """{output: (max err / max |oracle|, largest err - rtol |oracle|)}."""
+    out = {}
+    for name, a, b in (("y", got, want), ("state", gst, wst)):
+        a, b = a.float(), b.float()
+        err = (a - b).abs()
+        rtol = SCAN_BF16_TOL[kind][name][1]
+        out[name] = (float(err.max()) / max(float(b.abs().max()), 1e-30),
+                     float((err - rtol * b.abs()).max()))
+    return out
+
+
+def assert_scan_bf16_close(kind, got, gst, want, wst):
+    assert torch.isfinite(got.float()).all() and torch.isfinite(gst).all()
+    for name, (rel, excess) in scan_bf16_errors(kind, got, gst, want, wst).items():
+        assert rel <= 1e-2, (name, rel)
+        assert excess <= SCAN_BF16_TOL[kind][name][0], (name, excess)
+
+
+def _bf16_np(*arrs):
+    """numpy float32 arrays rounded to bfloat16: (bf16 tensors, the same values
+    as float32 numpy for the reference)."""
+    ts = [torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16) for a in arrs]
+    return ts, [t.float().numpy() for t in ts]
+
+
+def ssd_np_inputs(rng, B, S, H, P, N):
+    """tests/test_kernels.py::_mk_ssd's scales, plus an initial state."""
+    x = rng.standard_normal((B, S, H, P), np.float32) * 0.5
+    dt = np.abs(rng.standard_normal((B, S, H))).astype(np.float32) * 0.5
+    Al = rng.standard_normal((H,)).astype(np.float32) * 0.3
+    Bm = rng.standard_normal((B, S, N)).astype(np.float32) * 0.5
+    Cm = rng.standard_normal((B, S, N)).astype(np.float32) * 0.5
+    st0 = rng.standard_normal((B, H, P, N)).astype(np.float32) * 0.5
+    return (x, dt, Al, Bm, Cm, np.ones((H,), np.float32)), st0
+
+
+def wkv6_np_inputs(rng, B, S, H, Dh):
+    """tests/test_kernels.py::_mk_wkv's scales, plus an initial state."""
+    r, k, v = (rng.standard_normal((B, S, H, Dh), np.float32) * 0.5 for _ in range(3))
+    w = rng.uniform(0.7, 0.999, (B, S, H, Dh)).astype(np.float32)
+    u = rng.standard_normal((H, Dh)).astype(np.float32) * 0.3
+    st0 = rng.standard_normal((B, H, Dh, Dh)).astype(np.float32) * 0.5
+    return (r, k, v, w, u), st0
+
+
+def rwkv6_decay_init_inputs():
+    """rwkv6's decay init (w = exp(-exp(w0)), w0 ~ N(-1, 0.5)), B1 S256 H4 D64."""
+    rng = np.random.default_rng(0)
+    B, S_, H, D = 1, 256, 4, 64
+    r, k, v = (rng.standard_normal((B, S_, H, D), np.float32) * 0.5 for _ in range(3))
+    w0 = rng.standard_normal((H, D)).astype(np.float32) * 0.5 - 1.0
+    w = np.broadcast_to(np.exp(-np.exp(w0)), (B, S_, H, D)).astype(np.float32)
+    u = rng.standard_normal((H, D)).astype(np.float32) * 0.3
+    return r, k, v, w, u
+
+
+def zamba2_like_ssd_inputs():
+    """zamba2-like A (A_log = log U[1,16], the ssm_a init) and dt =
+    softplus(N(0, 0.5)), B1 S512 H8 P64 N64."""
+    rng = np.random.default_rng(0)
+    B, S_, H, P, N = 1, 512, 8, 64, 64
+    x = rng.standard_normal((B, S_, H, P)).astype(np.float32) * 0.5
+    dt = np.log1p(np.exp(rng.standard_normal((B, S_, H)).astype(np.float32) * 0.5))
+    Al = np.log(rng.uniform(1, 16, (H,))).astype(np.float32)
+    Bm, Cm = (rng.standard_normal((B, S_, N)).astype(np.float32) * 0.5 for _ in range(2))
+    return x, dt.astype(np.float32), Al, Bm, Cm, np.ones((H,), np.float32)
+
+
+def wkv6_clamp_inputs():
+    """w at the 1e-30 clamp and at 1.0 in the same 16-token chunk, on
+    alternating channels and tokens, with ordinary decays elsewhere: B1 S48 H2
+    D64, an initial state."""
+    (r, k, v, w, u), st0 = wkv6_np_inputs(np.random.default_rng(3), 1, 48, 2, 64)
+    w = w.copy()
+    w[:, 3:13, :, 0::2] = 1e-30
+    w[:, 3:13, :, 1::2] = 1.0
+    w[:, 20:30, :, 0::4] = 1.0
+    w[:, 21:29:2, :, 1::4] = 1e-30
+    return (r, k, v, w, u), st0
+
+
+@pytest.fixture
+def jax_scans():
+    """The reference's sequential oracles and Pallas scans."""
+    pytest.importorskip("jax")
+    from repro.kernels import ref as jref
+    from repro.kernels._rwkv6_pallas import wkv6_pallas
+    from repro.kernels._ssd_pallas import ssd_pallas
+
+    return jref, ssd_pallas, wkv6_pallas
+
+
+# the reference's test shapes (tests/test_kernels.py:74, :106) with their
+# Pallas chunks, and a ragged S against the kernels' chunks (the Pallas
+# kernel takes a chunk that divides S)
+SSD_MODEL_SHAPES = [(2, 128, 3, 32, 16, 32), (1, 256, 2, 16, 64, 64), (2, 64, 4, 8, 8, 16),
+                    (2, 100, 3, 32, 16, 20)]
+WKV6_MODEL_SHAPES = [(2, 128, 3, 32, 32), (1, 64, 2, 64, 16), (2, 96, 1, 16, 32),
+                     (2, 100, 3, 32, 20)]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_MODEL_SHAPES)
+@pytest.mark.parametrize("with_state", [False, True])
+def test_tensor_core_ssd_numerics_vs_reference(jax_scans, rng, B, S, H, P, N, chunk,
+                                               with_state):
+    """The bfloat16 SSD kernel's arithmetic, modelled here on inputs rounded to
+    bfloat16, against repro's sequential oracle and its Pallas scan
+    (interpret mode) on the same values in float32."""
+    import jax.numpy as jnp
+
+    jref, ssd_pallas, _ = jax_scans
+    args, st0 = ssd_np_inputs(rng, B, S, H, P, N)
+    (x, dt, Bm, Cm), (xn, dtn, Bn, Cn) = _bf16_np(args[0], args[1], args[3], args[4])
+    Al, D = args[2], args[5]
+    init = torch.from_numpy(st0) if with_state else None
+    got, gst = tc_ssd_model(x, dt, torch.from_numpy(Al), Bm, Cm, torch.from_numpy(D),
+                            init_state=init)
+    assert got.dtype == torch.bfloat16 and tuple(gst.shape) == (B, H, P, N)
+    jargs = [jnp.asarray(a) for a in (xn, dtn, Al, Bn, Cn, D)]
+    jinit = jnp.asarray(st0) if with_state else None
+    for oracle in (jref.ssd(*jargs, init_state=jinit, return_state=True),
+                   ssd_pallas(*jargs, chunk=chunk, init_state=jinit, return_state=True,
+                              interpret=True)):
+        want, wst = (torch.from_numpy(np.array(a, np.float32)) for a in oracle)
+        assert_scan_bf16_close("ssd", got, gst, want, wst)
+
+
+@pytest.mark.parametrize("B,S,H,Dh,chunk", WKV6_MODEL_SHAPES)
+@pytest.mark.parametrize("with_state", [False, True])
+def test_tensor_core_wkv6_numerics_vs_reference(jax_scans, rng, B, S, H, Dh, chunk,
+                                                with_state):
+    """The bfloat16 WKV6 kernel's arithmetic, modelled here on inputs rounded
+    to bfloat16, against repro's sequential oracle and its Pallas kernel
+    (interpret mode) on the same values in float32."""
+    import jax.numpy as jnp
+
+    jref, _, wkv6_pallas = jax_scans
+    (r, k, v, w, u), st0 = wkv6_np_inputs(rng, B, S, H, Dh)
+    tens, nps = _bf16_np(r, k, v, w)
+    init = torch.from_numpy(st0) if with_state else None
+    got, gst = tc_wkv6_model(*tens, torch.from_numpy(u), init_state=init)
+    assert got.dtype == torch.bfloat16 and tuple(gst.shape) == (B, H, Dh, Dh)
+    jargs = [jnp.asarray(a) for a in (*nps, u)]
+    jinit = jnp.asarray(st0) if with_state else None
+    for oracle in (jref.wkv6(*jargs, init_state=jinit, return_state=True),
+                   wkv6_pallas(*jargs, chunk=chunk, init_state=jinit, return_state=True,
+                               interpret=True)):
+        want, wst = (torch.from_numpy(np.array(a, np.float32)) for a in oracle)
+        assert_scan_bf16_close("wkv6", got, gst, want, wst)
+
+
+def test_tensor_core_wkv6_numerics_at_the_clamp_and_at_one(jax_scans):
+    """w at 1e-30 and at 1.0 in one chunk: the products stay finite (1e-30
+    squared underflows to 0, which is harmless) and on the sequential oracle."""
+    import jax.numpy as jnp
+
+    jref = jax_scans[0]
+    (r, k, v, w, u), st0 = wkv6_clamp_inputs()
+    tens, nps = _bf16_np(r, k, v, w)
+    got, gst = tc_wkv6_model(*tens, torch.from_numpy(u), init_state=torch.from_numpy(st0))
+    want, wst = (torch.from_numpy(np.array(a, np.float32)) for a in jref.wkv6(
+        *[jnp.asarray(a) for a in (*nps, u)], init_state=jnp.asarray(st0), return_state=True))
+    assert_scan_bf16_close("wkv6", got, gst, want, wst)
+
+
+@pytest.mark.parametrize("P,p_slice", [(64, 16), (64, 64), (40, 32)])
+def test_tensor_core_ssd_model_is_the_same_at_every_slice_width(P, p_slice):
+    """Each column of P is its own recurrence: the slice width changes which
+    CTA computes a column, not its arithmetic."""
+    args, st0 = ssd_np_inputs(np.random.default_rng(1), 1, 70, 2, P, 16)
+    (x, dt, Bm, Cm), _ = _bf16_np(args[0], args[1], args[3], args[4])
+    rest = dict(init_state=torch.from_numpy(st0))
+    a = tc_ssd_model(x, dt, torch.from_numpy(args[2]), Bm, Cm, torch.from_numpy(args[5]),
+                     p_slice=p_slice, **rest)
+    b = tc_ssd_model(x, dt, torch.from_numpy(args[2]), Bm, Cm, torch.from_numpy(args[5]),
+                     p_slice=P, **rest)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
 # ---- dispatch and wrapper checks (no card needed) ---------------------------
 
 def test_ops_rejects_unknown_impl():
@@ -380,6 +669,14 @@ def test_wkv6_check_refuses_what_the_kernel_does_not_take(D, mutate, match):
         WKV._check(*mutate(args), None)
 
 
+def test_ssd_check_refuses_a_bf16_state_wider_than_the_kernel():
+    args, _ = _ssd_args(1, 4, 2, 8, SSD.MAX_N_BF16 + 8, torch.bfloat16)
+    with pytest.raises(ValueError, match="N up to"):
+        SSD._check(*args, None)
+    args, _ = _ssd_args(1, 4, 2, 8, SSD.MAX_N_BF16 + 8)      # float32: the CUDA-core kernel
+    SSD._check(*args, None)
+
+
 def test_build_names_carry_a_source_digest(tmp_path, monkeypatch):
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
     for name in _build.SOURCES:
@@ -519,6 +816,8 @@ SCAN_TOL = {"ssd": {"float32": 5e-5, "bfloat16": 1e-2},
     (2, 500, 3, 32, 16),       # ragged: the last chunk is short
     (1, 37, 8, 32, 16),        # under one chunk (reduced zamba2's widths)
     (2, 128, 2, 16, 64), (1, 1, 4, 8, 8),
+    (1, 70, 2, 80, 128),       # P over two slices, the widest N of the bf16 kernel
+    (1, 130, 3, 12, 20),       # P, N not multiples of 8: the wrapper zero-pads them
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("with_state", [False, True])
@@ -533,13 +832,15 @@ def test_ssd_kernel_vs_plain(hopper, B, S, H, P, N, dtype, with_state):
     assert y.dtype == TDT[dtype] and st.dtype == torch.float32
     assert _rel_err(y, want) < SCAN_TOL["ssd"][dtype]
     assert _rel_err(st, wst) < SCAN_TOL["ssd"][dtype]
+    if dtype == "bfloat16":
+        assert_scan_bf16_close("ssd", y, st, want, wst)
     assert torch.equal(y, y2) and torch.equal(st, st2)    # no atomics: the same bits
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,H,D", [
     (4, 512, 32, 64),          # rwkv6-1.6b's prefill
-    (2, 500, 3, 32),           # ragged: the last tile is short
+    (2, 500, 3, 32),           # ragged: the last chunk is short
     (1, 12, 4, 32), (2, 96, 1, 16), (1, 70, 2, 128), (1, 1, 2, 64),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -555,7 +856,67 @@ def test_wkv6_kernel_vs_plain(hopper, B, S, H, D, dtype, with_state):
     assert y.dtype == TDT[dtype] and st.dtype == torch.float32
     assert _rel_err(y, want) < SCAN_TOL["wkv6"][dtype]
     assert _rel_err(st, wst) < SCAN_TOL["wkv6"][dtype]
+    if dtype == "bfloat16":
+        assert_scan_bf16_close("wkv6", y, st, want, wst)
     assert torch.equal(y, y2) and torch.equal(st, st2)
+
+
+def _cuda_bf16(*arrs):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16).cuda() for a in arrs]
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_at_zamba2_init_is_finite(hopper):
+    """Twin of the CPU overflow guard: zamba2's A and dt, where the
+    reference's chunked XLA form overflows."""
+    x, dt, Al, Bm, Cm, D = zamba2_like_ssd_inputs()
+    x, dt, Bm, Cm = _cuda_bf16(x, dt, Bm, Cm)
+    Al, D = torch.from_numpy(Al).cuda(), torch.from_numpy(D).cuda()
+    y, st = SSD.ssd(x, dt, Al, Bm, Cm, D, return_state=True)
+    want, wst = ref.ssd(x.float(), dt.float(), Al, Bm.float(), Cm.float(), D,
+                        return_state=True)
+    assert_scan_bf16_close("ssd", y, st, want, wst)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["rwkv6_decay_init", "clamp_and_one"])
+def test_wkv6_kernel_at_extreme_decays_is_finite(hopper, case):
+    """Twins of the CPU overflow guards: rwkv6's decay init, where the
+    reference's chunked forms overflow, and w at 1e-30 and 1.0 in one chunk."""
+    if case == "rwkv6_decay_init":
+        (r, k, v, w, u), st0 = rwkv6_decay_init_inputs(), None
+    else:
+        (r, k, v, w, u), st0 = wkv6_clamp_inputs()
+        st0 = torch.from_numpy(st0).cuda()
+    r, k, v, w = _cuda_bf16(r, k, v, w)
+    u = torch.from_numpy(u).cuda()
+    y, st = WKV.wkv6(r, k, v, w, u, init_state=st0, return_state=True)
+    want, wst = ref.wkv6(r.float(), k.float(), v.float(), w.float(), u, init_state=st0,
+                         return_state=True)
+    assert_scan_bf16_close("wkv6", y, st, want, wst)
+
+
+@pytest.mark.gpu
+def test_scan_kernels_take_views_off_a_16_byte_boundary(hopper):
+    """Contiguous views that start 2 bytes in: the wrappers copy them to
+    aligned buffers for the bf16 kernels' 16-byte copies; the same results."""
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        return view
+
+    args, st0 = _ssd_args(1, 90, 2, 32, 16, torch.bfloat16, "cuda")
+    want = SSD.ssd(*args, init_state=st0, return_state=True)
+    moved = (shifted(args[0]), args[1], args[2], shifted(args[3]), shifted(args[4]), args[5])
+    got = SSD.ssd(*moved, init_state=st0, return_state=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    args, st0 = _wkv_args(1, 40, 2, 32, torch.bfloat16, "cuda")
+    want = WKV.wkv6(*args, init_state=st0, return_state=True)
+    got = WKV.wkv6(*(shifted(a) for a in args[:4]), args[4], init_state=st0,
+                   return_state=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.gpu

@@ -39,6 +39,9 @@ from repro_torch.models import model as M
 from repro_torch.models import rwkv as R
 from repro_torch.models import ssm as S
 from repro_torch.utils.tree import flatten_with_names, tree_map
+from test_torch_kernels import (assert_scan_bf16_close, rwkv6_decay_init_inputs,
+                                ssd_np_inputs, tc_ssd_model, tc_wkv6_model, wkv6_np_inputs,
+                                zamba2_like_ssd_inputs)
 
 ARCHS = ["zamba2-1.2b", "rwkv6-1.6b"]
 SSD_TOL, WKV_TOL, MODEL_ATOL = 5e-5, 1e-4, 1e-4
@@ -58,32 +61,12 @@ def _err(got, want) -> float:
 
 # ---- the scans -----------------------------------------------------------------
 
-def _mk_ssd(rng, B, S, H, P, N):
-    """The inputs of tests/test_kernels.py::_mk_ssd, plus an initial state."""
-    x = rng.standard_normal((B, S, H, P), np.float32) * 0.5
-    dt = np.abs(rng.standard_normal((B, S, H))).astype(np.float32) * 0.5
-    Al = rng.standard_normal((H,)).astype(np.float32) * 0.3
-    Bm = rng.standard_normal((B, S, N)).astype(np.float32) * 0.5
-    Cm = rng.standard_normal((B, S, N)).astype(np.float32) * 0.5
-    D = np.ones((H,), np.float32)
-    st0 = rng.standard_normal((B, H, P, N)).astype(np.float32) * 0.5
-    return (x, dt, Al, Bm, Cm, D), st0
-
-
-def _mk_wkv(rng, B, S, H, Dh):
-    r, k, v = (rng.standard_normal((B, S, H, Dh), np.float32) * 0.5 for _ in range(3))
-    w = rng.uniform(0.7, 0.999, (B, S, H, Dh)).astype(np.float32)
-    u = rng.standard_normal((H, Dh)).astype(np.float32) * 0.3
-    st0 = rng.standard_normal((B, H, Dh, Dh)).astype(np.float32) * 0.5
-    return (r, k, v, w, u), st0
-
-
 @pytest.mark.parametrize("B,S,H,P,N,chunk", [
     (2, 128, 3, 32, 16, 32), (1, 256, 2, 16, 64, 64), (2, 64, 4, 8, 8, 16),
 ])
 @pytest.mark.parametrize("with_state", [False, True])
 def test_ssd_vs_reference_oracle_and_pallas(rng, B, S, H, P, N, chunk, with_state):
-    args, st0 = _mk_ssd(rng, B, S, H, P, N)
+    args, st0 = ssd_np_inputs(rng, B, S, H, P, N)
     st0 = st0 if with_state else None
     want, wst = jref.ssd(*_j(*args), init_state=None if st0 is None else jnp.asarray(st0),
                          return_state=True)
@@ -105,7 +88,7 @@ def test_ssd_vs_reference_oracle_and_pallas(rng, B, S, H, P, N, chunk, with_stat
 ])
 @pytest.mark.parametrize("with_state", [False, True])
 def test_wkv6_vs_reference_oracle_and_pallas(rng, B, S, H, Dh, chunk, with_state):
-    args, st0 = _mk_wkv(rng, B, S, H, Dh)
+    args, st0 = wkv6_np_inputs(rng, B, S, H, Dh)
     st0 = st0 if with_state else None
     want, wst = jref.wkv6(*_j(*args), init_state=None if st0 is None else jnp.asarray(st0),
                           return_state=True)
@@ -121,7 +104,7 @@ def test_wkv6_vs_reference_oracle_and_pallas(rng, B, S, H, Dh, chunk, with_state
 
 def test_ssd_step_vs_reference(rng):
     B, S_, H, P, N = 2, 16, 2, 8, 8
-    args, st0 = _mk_ssd(rng, B, S_, H, P, N)
+    args, st0 = ssd_np_inputs(rng, B, S_, H, P, N)
     x, dt, Al, Bm, Cm, D = args
     sj, st = jnp.asarray(st0), torch.from_numpy(st0)
     for t in range(S_):
@@ -136,7 +119,7 @@ def test_ssd_step_vs_reference(rng):
 
 def test_wkv6_step_vs_reference(rng):
     B, S_, H, Dh = 1, 12, 2, 16
-    args, st0 = _mk_wkv(rng, B, S_, H, Dh)
+    args, st0 = wkv6_np_inputs(rng, B, S_, H, Dh)
     r, k, v, w, u = args
     sj, st = jnp.asarray(st0), torch.from_numpy(st0)
     outs = []
@@ -151,10 +134,10 @@ def test_wkv6_step_vs_reference(rng):
 
 
 def test_scans_take_an_empty_sequence():
-    args, st0 = _mk_ssd(np.random.default_rng(0), 1, 0, 2, 4, 4)
+    args, st0 = ssd_np_inputs(np.random.default_rng(0), 1, 0, 2, 4, 4)
     y, st = ops.ssd(*_t(*args), init_state=torch.from_numpy(st0), return_state=True)
     assert tuple(y.shape) == (1, 0, 2, 4) and torch.equal(st, torch.from_numpy(st0))
-    args, st0 = _mk_wkv(np.random.default_rng(0), 1, 0, 2, 16)
+    args, st0 = wkv6_np_inputs(np.random.default_rng(0), 1, 0, 2, 16)
     y, st = ops.wkv6(*_t(*args), init_state=torch.from_numpy(st0), return_state=True)
     assert tuple(y.shape) == (1, 0, 2, 16) and torch.equal(st, torch.from_numpy(st0))
 
@@ -332,29 +315,6 @@ def test_zamba2_plan_has_groups_and_a_tail():
 
 # ---- the reference's chunked scans overflow where the port's do not -----------------
 
-def rwkv6_decay_init_inputs():
-    """rwkv6's decay init (w = exp(-exp(w0)), w0 ~ N(-1, 0.5)), B1 S256 H4 D64."""
-    rng = np.random.default_rng(0)
-    B, S_, H, D = 1, 256, 4, 64
-    r, k, v = (rng.standard_normal((B, S_, H, D), np.float32) * 0.5 for _ in range(3))
-    w0 = rng.standard_normal((H, D)).astype(np.float32) * 0.5 - 1.0
-    w = np.broadcast_to(np.exp(-np.exp(w0)), (B, S_, H, D)).astype(np.float32)
-    u = rng.standard_normal((H, D)).astype(np.float32) * 0.3
-    return r, k, v, w, u
-
-
-def zamba2_like_ssd_inputs():
-    """zamba2-like A (A_log = log U[1,16], the ssm_a init) and dt =
-    softplus(N(0, 0.5)), B1 S512 H8 P64 N64."""
-    rng = np.random.default_rng(0)
-    B, S_, H, P, N = 1, 512, 8, 64, 64
-    x = rng.standard_normal((B, S_, H, P)).astype(np.float32) * 0.5
-    dt = np.log1p(np.exp(rng.standard_normal((B, S_, H)).astype(np.float32) * 0.5))
-    Al = np.log(rng.uniform(1, 16, (H,))).astype(np.float32)
-    Bm, Cm = (rng.standard_normal((B, S_, N)).astype(np.float32) * 0.5 for _ in range(2))
-    return x, dt.astype(np.float32), Al, Bm, Cm, np.ones((H,), np.float32)
-
-
 def test_reference_wkv6_pallas_overflows_at_rwkv6_decay_init_port_does_not():
     """The TPU kernel's chunk-128 factorisation k * exp(-cw) overflows; the
     port's recurrence stays finite and on the sequential oracle."""
@@ -378,3 +338,40 @@ def test_reference_ssd_chunked_xla_overflows_at_zamba2_init_port_does_not():
     got, gst = ops.ssd(*_t(*args), chunk=256, return_state=True)
     assert torch.isfinite(got).all() and torch.isfinite(gst).all()
     assert _err(got, want) < SSD_TOL and _err(gst, wst) < SSD_TOL
+
+
+def _bf16(*arrs):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16) for a in arrs]
+
+
+def test_tensor_core_wkv6_model_at_rwkv6_decay_init_stays_finite():
+    """The bfloat16 kernel's chunked form (products of w within 16-token
+    chunks, every factor <= 1), modelled in tests/test_torch_kernels.py, where
+    the reference's chunk-128 forms are NaN: finite and on the sequential
+    oracle within the bfloat16 limits."""
+    r, k, v, w, u = rwkv6_decay_init_inputs()
+    tens = _bf16(r, k, v, w)
+    pal = np.asarray(wkv6_pallas(*_j(*(t.float().numpy() for t in tens), u), chunk=128,
+                                 interpret=True))
+    assert np.isnan(pal).mean() > 0.4           # the reference's form on the same values
+    got, gst = tc_wkv6_model(*tens, torch.from_numpy(u))
+    want, wst = (torch.from_numpy(np.array(a, np.float32)) for a in jref.wkv6(
+        *_j(*(t.float().numpy() for t in tens), u), return_state=True))
+    assert_scan_bf16_close("wkv6", got, gst, want, wst)
+
+
+def test_tensor_core_ssd_model_at_zamba2_init_stays_finite():
+    """The bfloat16 SSD kernel's form (scores exponentiated for j <= i only),
+    modelled in tests/test_torch_kernels.py, where the reference's chunked XLA
+    form is NaN: finite and on the sequential oracle within the bfloat16
+    limits."""
+    x, dt, Al, Bm, Cm, D = zamba2_like_ssd_inputs()
+    x, dt, Bm, Cm = _bf16(x, dt, Bm, Cm)
+    xn, dtn, Bn, Cn = (t.float().numpy() for t in (x, dt, Bm, Cm))
+    vals = [xn, dtn, Al, Bn, Cn, D]
+    chunked = np.asarray(ssd_chunked_xla(*_j(*vals), chunk=256))
+    assert np.isnan(chunked).mean() > 0.5
+    got, gst = tc_ssd_model(x, dt, torch.from_numpy(Al), Bm, Cm, torch.from_numpy(D))
+    want, wst = (torch.from_numpy(np.array(a, np.float32))
+                 for a in jref.ssd(*_j(*vals), return_state=True))
+    assert_scan_bf16_close("ssd", got, gst, want, wst)
