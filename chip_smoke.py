@@ -22,13 +22,14 @@ Phases, in order; any failure exits non-zero:
    call time (back-to-back calls between CUDA events, bounded by the host),
    the plain version's time (events) and the bound;
 3. serve: ``repro_torch.launch.serve`` at full width and depth with a
-   snapshot, migration and restore half way, for qwen2-0.5b, zamba2-1.2b and
-   rwkv6-1.6b in turn; each continuation must match the unmigrated run bit
-   for bit, and the launch counts must show that every attention and SSM
-   scan call went through the kernels;
-4. reference: reduced qwen2-0.5b, zamba2-1.2b and rwkv6-1.6b in float32, the
-   card's path (kernels) against the CPU path (plain versions): equal greedy
-   tokens, close logits;
+   snapshot, migration and restore half way, for qwen2-0.5b, zamba2-1.2b,
+   rwkv6-1.6b and qwen3-4b in turn; each continuation must match the
+   unmigrated run bit for bit, the snapshot must be the cache's bytes
+   (EXPECTED_SNAPSHOT_BYTES), and the launch counts must show that every
+   attention and SSM scan call went through the kernels;
+4. reference: reduced qwen2-0.5b, zamba2-1.2b, rwkv6-1.6b, qwen3-4b and
+   granite-8b in float32, the card's path (kernels) against the CPU path
+   (plain versions): equal greedy tokens, close logits;
 5. profile: device time by kernel and the device's busy share over one
    prefill and over decode steps at the serve phases' shapes, per arch;
 6. train state: the full-width qwen2-0.5b train state (params, AdamW m and v:
@@ -40,7 +41,17 @@ Phases, in order; any failure exits non-zero:
    --ckpt-device-fp`` at full width, as subprocesses: A uninterrupted, B cut
    by its walltime (exit 85), C requeued on B's checkpoint; A and C must end
    on the same loss and the same chunk hashes, and the launch counts must
-   show every attention and every save's fingerprinting on the kernels.
+   show every attention and every save's fingerprinting on the kernels;
+8. fleet: a publisher pushes full-width qwen2-0.5b weights (delta
+   checkpoints and the registry's push plane); ``repro_torch.launch.serve
+   --follow --pipeline-uploads`` as a subprocess must serve the step pushed
+   while it runs, with the launches its last line reports, and the same
+   follower wiring in this process must give, after its swap, the tokens of
+   a fresh engine on the pushed weights;
+9. scheduler: ``SlurmSim`` with two nodes runs phase 7's trainer with
+   ``--ckpt-promote eager``, preempted (SIGTERM) after its first step: it
+   must exit 85, be requeued onto its warm node, exit 0, and end on run A's
+   losses and chunk hashes.
 
 It prints a ``kernel_shapes`` JSON line (every timed shape with its launches
 on the main paths), a ``kernels`` JSON line (each kernel at its first shape)
@@ -57,6 +68,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -87,8 +99,23 @@ EXPECTED_LAUNCHES = {
     "zamba2-1.2b": {"flash": 12, "flash_decode": 384, "ssd": 76, "wkv6": 0},
     # 24 rwkv6 layers, no attention
     "rwkv6-1.6b": {"flash": 0, "flash_decode": 0, "ssd": 0, "wkv6": 48},
+    # 36 attention layers, head dim 128, 32 query / 8 KV heads
+    "qwen3-4b": {"flash": 72, "flash_decode": 2304, "ssd": 0, "wkv6": 0},
 }
 SERVE_ARCHS = tuple(EXPECTED_LAUNCHES)
+# bytes of one serve snapshot at the serve argv (batch 4, cache 1024): the
+# cache, ``t`` (4 bytes) and the last tokens (4 x 4 bytes)
+EXPECTED_SNAPSHOT_BYTES = {
+    # 24 layers x K,V x 4 x 1024 x 2 KV heads x 64 x bfloat16
+    "qwen2-0.5b": 50_331_668,
+    # 38 mamba2 layers' float32 SSM and bfloat16 conv states, the shared
+    # attention block's bfloat16 KV caches
+    "zamba2-1.2b": 364_562_452,
+    # 24 rwkv6 layers' float32 WKV states and bfloat16 token-shift rows
+    "rwkv6-1.6b": 51_118_100,
+    # 36 layers x K,V x 4 x 1024 x 8 KV heads x 128 x bfloat16
+    "qwen3-4b": 603_979_796,
+}
 # bfloat16: relative to the largest |plain| value of each output; the kernel
 # rounds y to bfloat16, at most 2^-8 of |y|
 SCAN_TOL = {"ssd": {"float32": 5e-5, "bfloat16": 1e-2},
@@ -109,6 +136,14 @@ TRAIN_DISK_BYTES = 25e9     # three runs write ~18 GB of chunks
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+T0 = time.perf_counter()
+
+
+def phase(msg: str) -> None:
+    """A phase's heading, with the seconds since the script started."""
+    log(f"{msg} [{time.perf_counter() - T0:.1f}s]")
 
 
 def card_line() -> str:
@@ -256,9 +291,11 @@ def _randn(shape, dtype, gen):
 # they carry: (label, B, S, H, Hkv, D, launch source)
 FLASH_SHAPES = [("qwen2-0.5b prefill", 4, 512, 14, 2, 64, "qwen2-0.5b"),
                 ("zamba2-1.2b shared block", 4, 512, 32, 32, 64, "zamba2-1.2b"),
-                ("qwen2-0.5b train forward", 8, 128, 14, 2, 64, "train")]
+                ("qwen2-0.5b train forward", 8, 128, 14, 2, 64, "train"),
+                ("qwen3-4b prefill", 4, 512, 32, 8, 128, "qwen3-4b")]
 DECODE_SHAPES = [("qwen2-0.5b decode", 4, 1024, 14, 2, 64, "qwen2-0.5b"),
-                 ("zamba2-1.2b decode", 4, 1024, 32, 32, 64, "zamba2-1.2b")]
+                 ("zamba2-1.2b decode", 4, 1024, 32, 32, 64, "zamba2-1.2b"),
+                 ("qwen3-4b decode", 4, 1024, 32, 8, 128, "qwen3-4b")]
 DECODE_KV_LEN = 544      # the serve phases' last position: prompt 512 + 32
 
 
@@ -279,6 +316,7 @@ def phase_kernels() -> dict:
         (4, 512, 14, 2, 64, 64, "bfloat16", True),     # the main path's prefill
         (4, 512, 32, 32, 64, 64, "bfloat16", True),    # zamba2's shared attention, G=1
         (8, 128, 14, 2, 64, 64, "bfloat16", True),     # the train forward
+        (4, 512, 32, 8, 128, 128, "bfloat16", True),   # qwen3-4b's prefill, D 128, G = 4
         *[(2, n, 14, 2, 64, 64, "bfloat16", True) for n in (1, 17, 63, 65, 300)],  # ragged
         (1, 256, 8, 1, 128, 64, "bfloat16", False),    # Dq != Dv, not causal
         (1, 100, 4, 4, 32, 128, "bfloat16", True),
@@ -334,6 +372,7 @@ def phase_kernels() -> dict:
     decode_cases = [  # B, S, H, Hkv, D, dtype, kv_lens
         (4, 1024, 14, 2, 64, "bfloat16", (1, 300, 544, 1024)),   # 544: end of the main path
         (4, 1024, 32, 32, 64, "bfloat16", (1, 300, 544)),        # zamba2's shared attention
+        (4, 1024, 32, 8, 128, "bfloat16", (1, 65, 544, 1024)),   # qwen3-4b, D 128, G = 4
         (2, 512, 8, 2, 64, "float32", (77,)),
     ]
     for B, S, H, Hkv, D, dtn, _ in decode_cases[:2]:       # the split boundaries, and 0
@@ -644,8 +683,13 @@ def phase_serve(ckpt_dir: str, arch: str) -> dict:
         f"{rep['decode_ms_per_token']:.3f}  snapshot save_s {rep['save_s']:.4f} "
         f"restore_s {rep['restore_s']:.4f} bytes {rep['snapshot_bytes']}")
     log(f"  launches {counts} (expected {EXPECTED_LAUNCHES[arch]})")
+    want_bytes = EXPECTED_SNAPSHOT_BYTES[arch]
+    log(f"  snapshot bytes {rep['snapshot_bytes']} (expected {want_bytes}: the cache, t and "
+        "the last tokens)")
     if not rep["match"]:
         raise AssertionError("the migrated continuation diverged")
+    if rep["snapshot_bytes"] != want_bytes:
+        raise AssertionError(f"snapshot of {rep['snapshot_bytes']} bytes, expected {want_bytes}")
     if not rep["logits_finite"]:
         raise AssertionError("non-finite logits")
     if counts != EXPECTED_LAUNCHES[arch]:
@@ -902,15 +946,20 @@ def phase_state(work: Path) -> dict:
             "saves": saves}
 
 
+def _child_env() -> dict:
+    """The environment of a child process: this one's, with the port's
+    sources first on the path and unbuffered output."""
+    return {**os.environ, "PYTHONUNBUFFERED": "1", "PYTHONPATH": os.pathsep.join(
+        [str(ROOT / "src")] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH")
+                               else []))}
+
+
 def _train_run(work: Path, tag: str, ckpt: str, extra: list) -> tuple[int, dict]:
     out = work / f"{tag}.json"
     cmd = [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_ARGV,
            "--ckpt-dir", str(work / ckpt), "--metrics-out", str(out), *extra]
-    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
-        [str(ROOT / "src")] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH")
-                               else []))}
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=900)
+    r = subprocess.run(cmd, env=_child_env(), capture_output=True, text=True, timeout=900)
     wall = time.perf_counter() - t0
     if not out.exists():
         raise AssertionError(f"train run {tag} wrote no metrics (exit {r.returncode}):\n"
@@ -942,6 +991,12 @@ def _final_hashes(ckpt_dir: Path) -> dict:
     return {e["path"]: [c["hash"] for c in e["chunks"]] for e in man["leaves"]}
 
 
+def _train_launches(m: dict, fp_per_save: int) -> dict:
+    """What a train run's launch counts must be: flash 24 per step (one
+    forward of 24 layers), the fingerprint kernel's per device-fp save."""
+    return {"flash": 24 * len(m["steps"]), "chunk_fingerprints": fp_per_save * len(m["saves"])}
+
+
 def phase_train(work: Path, fp_per_save: int) -> dict:
     """The paper's C/R loop at full width, as a user runs it: A uninterrupted;
     B with a walltime its margin exceeds, so it checkpoints after its first
@@ -964,14 +1019,246 @@ def phase_train(work: Path, fp_per_save: int) -> dict:
         raise AssertionError("the requeued run did not finish bit-identical to run A")
     counts = {}
     for tag, m in (("A", a), ("B", b), ("C", c)):
-        want = {"flash": 24 * len(m["steps"]), "chunk_fingerprints": fp_per_save * len(m["saves"])}
+        want = _train_launches(m, fp_per_save)
         if m["launches"] != want:
             raise AssertionError(f"run {tag}: launches {m['launches']}, expected {want}")
         for k, n in m["launches"].items():
             counts[k] = counts.get(k, 0) + n
     log(f"  launches over A+B+C {counts} (flash 24 per step, chunk_fingerprints "
         f"{fp_per_save} per device-fp save)")
-    return {"counts": counts, "A": a, "B": b, "C": c}
+    shutil.rmtree(work / "b")
+    return {"counts": counts, "A": a, "B": b, "C": c, "hashes_a": hashes_a}
+
+
+FLEET_ARGV = ["--arch", "qwen2-0.5b", "--batch", "4", "--prompt-len", "512", "--gen", "32",
+              "--max-seq", "1024", "--max-lag-steps", "2", "--pipeline-uploads"]
+FLEET_BATCHES = 4
+
+
+def _publish(mgr, registry, step: int) -> float:
+    """Commit and announce a saved ``step``; returns the seconds it took."""
+    t0 = time.perf_counter()
+    man = mgr.commit(step)
+    registry.announce_push(step=step, node="pub", manifest_version=man.get("manifest_version"))
+    return time.perf_counter() - t0
+
+
+def phase_fleet(work: Path) -> dict:
+    """Weight-follow at full width: a publisher pushes qwen2-0.5b's float32
+    weights as delta checkpoints; ``serve --follow`` in a subprocess must serve
+    the step pushed while it runs, and the same follower wiring in this
+    process must, after its swap, give a fresh engine's tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.manager import CheckpointManager, CheckpointPolicy
+    from repro_torch.checkpoint.store import TieredStore
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.sched.cache_registry import REGISTRY_DIRNAME, CacheRegistry
+    from repro_torch.serve.engine import Engine
+    from repro_torch.utils.tree import tree_map
+
+    cfg = get_config("qwen2-0.5b")
+    root = work / "fleet"
+    weights = root / "weights"
+    model = M.init_params(cfg, 0, "cuda")
+    trees = {1: tree_map(lambda t: t.cpu().numpy(), M.params_tree(model))}
+    del model
+    torch.cuda.empty_cache()
+    # step 2 moves a few leaves: some embedding rows and the first layer's
+    # down projection (negated, so that the greedy tokens change)
+    trees[2] = tree_map(lambda a: a, trees[1])
+    table = trees[2]["embed"]["table"] = trees[1]["embed"]["table"].copy()
+    table[:64] += 0.01
+    down = trees[2]["seg0"]["ffn"]["down"]["w"] = trees[1]["seg0"]["ffn"]["down"]["w"].copy()
+    down[0] *= -1.0
+    registry = CacheRegistry(weights / REGISTRY_DIRNAME)
+    pub = CheckpointManager(TieredStore(weights), CheckpointPolicy(delta=True), node="pub",
+                            registry=registry)
+    fol = None
+    try:
+        t0 = time.perf_counter()
+        pub.save(1, trees[1])
+        push_s = {1: time.perf_counter() - t0 + _publish(pub, registry, 1)}
+        # the same wiring in this process, uploads on the upload thread: it
+        # restores step 1 now, and takes step 2 after the subprocess below
+        args = serve.parse_args([*FLEET_ARGV, "--follow", "--ckpt-dir", str(weights),
+                                 "--local-root", str(root / "r1"), "--replica", "r1"])
+        fol = serve.open_follower(args)
+        client, handle, eng, restore_s = fol.client, fol.client.handle, fol.engine, fol.restore_s
+        prompts = serve.synthetic_prompts(cfg, np.random.default_rng(1), args.batch,
+                                          args.prompt_len, fol.device)
+        eng.prefill(prompts)
+        at_step1 = eng.generate(args.gen)            # warm, and step 1's tokens
+
+        # step 2's chunks are written now and the step is published (committed
+        # and announced) once the subprocess follower has served batch 0, so
+        # that it lands while that follower runs, not after its last batch
+        t0 = time.perf_counter()
+        pub.save(2, trees[2])
+        save2_s = time.perf_counter() - t0
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", *FLEET_ARGV, "--follow",
+               "--batches", str(FLEET_BATCHES), "--ckpt-dir", str(weights),
+               "--local-root", str(root / "r0"), "--replica", "r0"]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, env=_child_env(), stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        watchdog = threading.Timer(600, proc.kill)
+        watchdog.start()
+        lines = []
+        try:
+            for line in proc.stdout:
+                line = line.rstrip()
+                lines.append(line)
+                log(f"    follower: {line}")
+                if 2 not in push_s and line.startswith("batch 0:"):
+                    push_s[2] = _publish(pub, registry, 2)
+                    log(f"  published step 2 in {push_s[2]:.3f}s (its save took {save2_s:.3f}s)")
+            rc = proc.wait()
+        finally:
+            watchdog.cancel()
+        wall = time.perf_counter() - t0
+        batches = [ln for ln in lines if ln.startswith("batch ")]
+        advert = weights / REGISTRY_DIRNAME / "followers" / "r0.json"
+        served2 = any("served step 2," in ln for ln in batches[1:])
+        restored = next((ln for ln in lines if " restored step " in ln), "")
+        log(f"  follower subprocess: exit {rc} in {wall:.1f}s, {len(batches)} batch lines, "
+            f"served step 2 on a later batch {served2}, advert {advert.exists()}; "
+            f"push of step 1 {push_s[1]:.3f}s")
+        if rc != 0 or len(batches) != FLEET_BATCHES or not served2 or not advert.exists():
+            raise AssertionError(f"the follower subprocess failed (exit {rc}):\n"
+                                 + "\n".join(lines[-40:]))
+        # its own launch counts, from its last stderr line: every batch one
+        # prefill (24 layers) and args.gen decode steps
+        words = next((ln for ln in lines if ": launches flash " in ln), ": launches").split(
+            ": launches")[1].split()
+        sub_counts = {words[i]: int(words[i + 1]) for i in range(0, len(words) - 1, 2)}
+        sub_want = {"flash": 24 * FLEET_BATCHES, "flash_decode": 24 * args.gen * FLEET_BATCHES}
+        log(f"  follower subprocess launches {sub_counts} (expected {sub_want})")
+        if sub_counts != sub_want:
+            raise AssertionError(f"follower subprocess launches {sub_counts} != {sub_want}")
+
+        for m in (flash_attention, decode_attention):
+            m.launches = 0
+        served, lags = 0, []
+        rec = client.sync_once()
+        # until a batch is prefilled on step 2: the staged push swaps in at the
+        # entry of prefill or of generate, whichever finds it staged
+        prefilled_on = 1
+        while prefilled_on != 2 and served < 8:
+            eng.prefill(prompts)
+            prefilled_on = handle.step
+            got = eng.generate(args.gen)
+            served += 1
+            lags.append((prefilled_on, handle.step, client.lag()))
+        counts = {"flash": flash_attention.launches, "flash_decode": decode_attention.launches}
+        want = {"flash": 24 * served, "flash_decode": 24 * args.gen * served}
+        fresh = Engine(cfg, M.params_from_numpy(cfg, trees[2], "cuda"), batch=args.batch,
+                       max_seq=args.max_seq)
+        fresh.prefill(prompts)
+        same = bool(np.array_equal(got, fresh.generate(args.gen)))
+        changed = not np.array_equal(got, at_step1)
+        log(f"  in process: restore of step 1 {restore_s:.3f}s; fetch of step 2 "
+            f"{rec['fetch_s']:.3f}s, bytes by tier {rec['bytes_by_tier']}, chunks "
+            f"{rec['chunks']}; {served} batches (step at prefill, after, lag) {lags}, swap stall "
+            f"{handle.last_swap_s * 1e6:.0f}us; tokens after the swap equal a fresh engine's "
+            f"on step 2 {same}, differ from step 1's {changed}; launches {counts} "
+            f"(expected {want})")
+        if handle.step != 2 or not same or not changed:
+            raise AssertionError("the pipelined swap did not serve step 2's tokens")
+        if counts != want:
+            raise AssertionError(f"fleet launches {counts} != {want}")
+    finally:
+        if fol is not None:
+            fol.close()
+        pub.close()
+        shutil.rmtree(root, ignore_errors=True)
+    del fresh, fol, eng
+    torch.cuda.empty_cache()
+    counts = {k: n + sub_counts[k] for k, n in counts.items()}
+    return {"counts": counts, "subprocess_wall_s": wall, "batch_lines": batches,
+            "subprocess_restore": restored, "restore_s": restore_s, "fetch_s": rec["fetch_s"]}
+
+
+def phase_sched(work: Path, train_rep: dict, fp_per_save: int) -> dict:
+    """Phase 7's trainer under ``SlurmSim`` with two nodes and a cache
+    affinity on its checkpoint directory: preempted (SIGTERM, scancel-style)
+    once it has logged step 0, requeued onto the node whose promoted cache is
+    warm, finishing on run A's losses and chunk hashes."""
+    from repro_torch.sched.placement import SCORE_WARM, CacheAffinity
+    from repro_torch.sched.slurmsim import REQUEUE_EXIT, JobSpec, SlurmSim
+
+    ckpt, metrics = work / "sched", work / "sched.json"
+    attempts, consumed = {}, {}
+
+    def before_launch(rec):          # keep each attempt's metrics and wall time
+        if rec.requeues:
+            attempts[rec.requeues - 1] = json.loads(metrics.read_text())
+            consumed[rec.requeues - 1] = rec.consumed_s
+
+    sim = SlurmSim(work / "sim", nodes=2, pre_launch=before_launch)
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_ARGV,
+           "--ckpt-dir", str(ckpt), "--metrics-out", str(metrics), "--ckpt-promote", "eager"]
+    jid = sim.submit(JobSpec(name="train", cmd=cmd, walltime_s=900, max_requeues=2,
+                             env=_child_env(),
+                             cache_affinity=CacheAffinity(ckpt_dir=str(ckpt), warm_wait_s=60)))
+    out = sim.workdir / "train.out"
+
+    def preempt_after_step0():
+        while sim.job(jid).state in ("PENDING", "RUNNING"):
+            if out.exists() and "step 0 loss" in out.read_text():
+                sim.preempt(jid)
+                return
+            time.sleep(0.05)
+
+    watcher = threading.Thread(target=preempt_after_step0, daemon=True)
+    t0 = time.perf_counter()
+    watcher.start()
+    sim.run(timeout_s=900)
+    watcher.join(timeout=10)
+    wall = time.perf_counter() - t0
+    rec = sim.job(jid)
+    attempts[rec.requeues] = json.loads(metrics.read_text())
+    walls = [consumed.get(0, 0.0), rec.consumed_s - consumed.get(0, 0.0)]
+    for line in out.read_text().splitlines():
+        if line.startswith(("===", "step ", "[train]", "[cr] restore")):
+            log(f"    job: {line[:200]}")
+    log(f"  job: exit codes {rec.exit_codes}, placements {rec.placements}, attempt walls "
+        f"{walls[0]:.1f}s / {walls[1]:.1f}s, sim {wall:.1f}s")
+    if rec.state != "COMPLETED" or rec.exit_codes != [REQUEUE_EXIT, 0]:
+        raise AssertionError(f"the job ended {rec.state} with exit codes {rec.exit_codes}")
+    entry = rec.placement_log[1]
+    node = rec.placements[0]
+    st = attempts[1]["restore_stats"]
+    log(f"  attempt 1 placement {entry['node']} scores {entry['scores']} reasons "
+        f"{entry['reasons']}; restore_s {attempts[1]['restore_s']:.3f} (phase 7 run C "
+        f"{train_rep['C']['restore_s']:.3f}) tier {st['tier']} promoted {st['promoted']} "
+        f"bytes by tier {st['bytes_by_tier']}")
+    if entry["node"] != node or entry["scores"][node] != SCORE_WARM:
+        raise AssertionError("the requeued attempt was not placed on its warm node")
+    if not st["promoted"] or st["bytes_by_tier"].get("shared", 0):
+        raise AssertionError("the warm restore read the shared tier")
+    steps = attempts[0]["steps"] + attempts[1]["steps"]
+    a = train_rep["A"]["steps"]
+    same_losses = [s["loss"] for s in steps] == [s["loss"] for s in a]
+    same_hashes = _final_hashes(ckpt) == train_rep["hashes_a"]
+    log(f"  steps {[s['step'] for s in steps]}; every loss equal to run A's {same_losses}; "
+        f"final chunk hashes identical {same_hashes}")
+    if [s["step"] for s in steps] != [s["step"] for s in a] or not same_losses or not same_hashes:
+        raise AssertionError("the requeued job did not finish bit-identical to run A")
+    counts = {}
+    for k, m in sorted(attempts.items()):
+        if m["launches"] != _train_launches(m, fp_per_save):
+            raise AssertionError(f"attempt {k}: launches {m['launches']}")
+        for name, n in m["launches"].items():
+            counts[name] = counts.get(name, 0) + n
+    log(f"  launches over both attempts {counts}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    shutil.rmtree(sim.workdir, ignore_errors=True)
+    return {"counts": counts, "walls": walls, "restore_s": attempts[1]["restore_s"]}
 
 
 def main() -> int:
@@ -985,37 +1272,47 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     log(f"phase 0 card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
-    log("phase 1 build")
+    phase("phase 1 build")
     phase_build()
-    log("phase 2 kernels against their plain versions")
+    phase("phase 2 kernels against their plain versions")
     kern = phase_kernels()
     serve_rep = {}
     for arch in SERVE_ARCHS:
-        log(f"phase 3 serve {arch} at full width with snapshot/migrate/restore")
+        phase(f"phase 3 serve {arch} at full width with snapshot/migrate/restore")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             serve_rep[arch] = phase_serve(tmp, arch)
-    log("phase 4 reduced models: card against CPU")
+    phase("phase 4 reduced models: card against CPU")
     phase_reference("qwen2-0.5b", 24, 64)
     # 70 tokens: two chunks of the SSD kernel, the second ragged
     phase_reference("zamba2-1.2b", 70, 96)
     phase_reference("rwkv6-1.6b", 70, 96)
+    phase_reference("qwen3-4b", 24, 64)
+    phase_reference("granite-8b", 24, 64)
     for arch in SERVE_ARCHS:
-        log(f"phase 5 where the serving path's device time goes (torch.profiler), {arch}")
+        phase(f"phase 5 where the serving path's device time goes (torch.profiler), {arch}")
         phase_profile(arch)
     work = _work_dir()
     try:
-        log("phase 6 the full-width train state: fingerprints, a profiled step, saves")
+        phase("phase 6 the full-width train state: fingerprints, a profiled step, saves")
         state_rep = phase_state(work)
-        log("phase 7 train qwen2-0.5b at full width through the C/R loop "
+        phase("phase 7 train qwen2-0.5b at full width through the C/R loop "
             "(--ckpt-delta --ckpt-device-fp): A, B preempted, C requeued")
         train_rep = phase_train(work, state_rep["fp_launches_per_save"])
+        phase("phase 8 fleet: serve --follow at full width (qwen2-0.5b) on pushed weights")
+        fleet_rep = phase_fleet(work)
+        phase("phase 9 scheduler: SlurmSim preempts the phase 7 trainer and requeues it "
+            "onto its warm node")
+        sched_rep = phase_sched(work, train_rep, state_rep["fp_launches_per_save"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # launches over every main-path run of this script: the three serve runs
-    # and the three train runs (the checksum kernel is on no main path)
+    # launches over every main-path run of this script: the four serve runs,
+    # the train runs of phase 7, the in-process follower and the scheduled
+    # job (the checksum kernel is on no main path)
     runs = {arch: r["counts"] for arch, r in serve_rep.items()}
     runs["train"] = train_rep["counts"]
+    runs["fleet"] = fleet_rep["counts"]
+    runs["sched"] = sched_rep["counts"]
     sources = {"flash": ("src/repro_torch/csrc/flash_attention.cu",
                          "src/repro/kernels/flash_attention.py:75"),
                "flash_decode": ("src/repro_torch/csrc/decode_attention.cu",
@@ -1040,6 +1337,7 @@ def main() -> int:
                         "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
                         "bound_by": first["bound_by"],
                         "library_ms": first["library_ms"] and first["library_ms"]["median"]})
+    log(f"all phases passed in {time.perf_counter() - T0:.1f}s")
     # every timed shape with its launches on the main paths (ms and library_ms:
     # device time, median/min/max of 5; call_ms: back-to-back calls by events)
     print(json.dumps({"kernel_shapes": per_shape}))

@@ -99,13 +99,11 @@ def manifest_payload_map(manifest: dict, prefix: str) -> dict[str, tuple]:
 def committed_steps(store: TieredStore, tier: str, prefix: str) -> list[int]:
     """Steps with a MANIFEST.json on ``tier`` (a checkpoint exists iff its
     manifest does).  Module-level so schedulers can enumerate without
-    constructing a manager."""
-    out = set()
-    for r in store.list_prefix(tier, prefix):
-        parts = Path(r).parts
-        if len(parts) >= 2 and parts[-1] == "MANIFEST.json":
-            out.add(int(parts[-2].split("_")[1]))
-    return sorted(out)
+    constructing a manager.  Only the step directories' manifests are
+    looked up: listing the whole prefix would walk every chunk file of the
+    store, which every commit does twice."""
+    return sorted(int(Path(r).parts[-2].split("_")[1])
+                  for r in store.glob(tier, prefix, "step_*/MANIFEST.json"))
 
 
 def validate_promoted_cache(store: TieredStore, *, tier: str = "shared",

@@ -818,6 +818,16 @@ class TieredStore:
                 p.unlink()
                 self._fd_invalidate(p)
 
+    def glob(self, tier: str, prefix: str, pattern: str) -> set[str]:
+        """Store-relative names of the files under ``prefix`` that match
+        ``pattern`` (as ``Path.glob`` reads it), on every node of ``tier``."""
+        out: set[str] = set()
+        for nd in self._node_dirs(tier):
+            for f in (nd / prefix).glob(pattern):
+                if f.is_file():
+                    out.add(str(f.relative_to(nd)))
+        return out
+
     def list_prefix(self, tier: str, prefix: str) -> set[str]:
         out: set[str] = set()
         for nd in self._node_dirs(tier):

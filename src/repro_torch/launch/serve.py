@@ -1,5 +1,6 @@
-"""Serving entry point: pause/migrate/resume (the paper's C/R applied to inference
-state).
+"""Serving entry point: pause/migrate/resume (the paper's C/R applied to
+inference state), plus serving-fleet weight-follow (the chunk fabric applied
+to weight distribution).
 
   python -m repro_torch.launch.serve --arch qwen2-0.5b --batch 4 \\
       --prompt-len 512 --gen 32 --max-seq 1024 --snapshot-at 16 --ckpt-dir /tmp/serve
@@ -12,25 +13,37 @@ finishes, printing whether the continuation matched an unmigrated reference
 with no GPU and no ``--device cpu`` it fails.  float32 matrix products run in
 full float32 (TF32 off), as on the CPU.
 
-Fleet mode (``--follow``) is not ported yet: it needs the scheduler's cache
-registry.
+Fleet mode (``--follow``): the checkpoint prefix holds PARAMETER checkpoints
+pushed by a trainer (``CheckpointManager`` + ``registry.announce_push``).
+This replica restores the latest push read-only, serves batches, and between
+batches polls the push plane, fetches newer weights through the chunk
+fabric, and swaps them in at generation boundaries (never mid-decode) with
+staleness bounded by ``--max-lag-steps``:
+
+  python -m repro_torch.launch.serve --arch qwen2-0.5b --follow \\
+      --ckpt-dir /tmp/weights --replica r0 --max-lag-steps 2 --batches 4
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.checkpoint import serialization as SER
-from repro_torch.checkpoint.manager import CheckpointManager
-from repro_torch.checkpoint.store import TieredStore
-from repro_torch.configs.base import get_config, reduced as reduce_cfg
+from repro_torch.checkpoint.manager import CheckpointManager, CheckpointPolicy
+from repro_torch.checkpoint.store import TieredStore, node_local_tier_roots
+from repro_torch.configs.base import ModelConfig, get_config, reduced as reduce_cfg
+from repro_torch.kernels import decode_attention, flash_attention
 from repro_torch.models import model as M
+from repro_torch.sched.cache_registry import REGISTRY_DIRNAME, CacheRegistry
 from repro_torch.serve.engine import Engine
+from repro_torch.serve.weight_sync import ParamHandle, WeightSyncClient
 from repro_torch.utils.tree import tree_bytes, tree_map
 
 
@@ -55,8 +68,35 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; the kernels run only on cuda")
+    # fleet follower mode
     ap.add_argument("--follow", action="store_true",
-                    help="serve as a weight-sync follower (not ported yet)")
+                    help="serve as a weight-sync follower of --ckpt-dir")
+    ap.add_argument("--replica", default="r0",
+                    help="this replica's name in the registry fleet view")
+    ap.add_argument("--max-lag-steps", type=int, default=None,
+                    help="staleness bound: force a swap (then drain or "
+                         "fail) past this many steps behind the push")
+    ap.add_argument("--on-stale", choices=("drain", "raise"),
+                    default="drain",
+                    help="--follow: past --max-lag-steps, drain and "
+                         "re-admit (default) or fail out of rotation")
+    ap.add_argument("--drain-timeout-s", type=float, default=60.0,
+                    help="--follow: give up on a drain that never "
+                         "re-admits after this long")
+    ap.add_argument("--poll-s", type=float, default=0.1,
+                    help="--follow: push-plane poll interval while "
+                         "draining")
+    ap.add_argument("--pipeline-uploads", action="store_true",
+                    help="--follow: overlap device upload of push N with "
+                         "the fetch of push N+1")
+    ap.add_argument("--local-root", default=None,
+                    help="--follow: private node-local tier root for this "
+                         "replica (isolates + peer-exposes its cache)")
+    ap.add_argument("--batches", type=int, default=4,
+                    help="--follow: request batches to serve before exit")
+    ap.add_argument("--delta", action="store_true", default=True,
+                    help="--follow: expect delta (chunked) weight pushes")
+    ap.add_argument("--restore-workers", type=int, default=0)
     return ap.parse_args(argv)
 
 
@@ -66,22 +106,158 @@ def _synced() -> float:
     return time.perf_counter()
 
 
+def _full_fp32() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def synthetic_prompts(cfg: ModelConfig, rng: np.random.Generator, batch: int,
+                      prompt_len: int, device: torch.device) -> dict:
+    """A batch of random prompts, as the engine takes them."""
+    return {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, prompt_len)),
+                                      dtype=torch.int32, device=device)}
+
+
+def model_uploader(cfg: ModelConfig, device: torch.device):
+    """``to_native`` for a follower: a restored host tree -> the ``LM`` on
+    ``device``.  The model is on the card in full before it is returned: with
+    --pipeline-uploads this runs on the upload thread, and the engine may
+    swap the model in as soon as it is staged."""
+    def to_native(tree) -> M.LM:
+        model = M.params_from_numpy(cfg, tree, device)
+        if device.type == "cuda":
+            torch.cuda.current_stream(device).synchronize()
+        return model
+    return to_native
+
+
+@dataclasses.dataclass
+class Follower:
+    """A follower replica's wiring: the read-only manager, the sync client,
+    and the engine serving the client's ``ParamHandle``."""
+
+    cfg: ModelConfig
+    device: torch.device
+    mgr: CheckpointManager
+    client: WeightSyncClient
+    engine: Engine
+    manifest: dict
+    restore_s: float
+
+    def close(self) -> None:
+        try:
+            self.client.close()
+        finally:
+            self.mgr.close()
+
+
+def open_follower(args: argparse.Namespace) -> Optional[Follower]:
+    """Restore the latest pushed weights read-only and wire the sync client
+    and the engine as ``--follow`` serves them; None when nothing is
+    committed yet.  The restore template is the param specs on the meta
+    device, so no second model is built on the card."""
+    device = resolve_device(args.device)
+    _full_fp32()
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduce_cfg(cfg)
+    tier_roots = (node_local_tier_roots(Path(args.local_root))
+                  if args.local_root else None)
+    store = TieredStore(Path(args.ckpt_dir), tier_roots=tier_roots)
+    registry = CacheRegistry(Path(args.ckpt_dir) / REGISTRY_DIRNAME)
+    mgr = CheckpointManager(
+        store,
+        CheckpointPolicy(delta=args.delta, restore_workers=args.restore_workers),
+        node=args.replica, registry=registry)
+    if not mgr.steps():
+        mgr.close()
+        return None
+    template = M.abstract_params(cfg)
+    to_native = model_uploader(cfg, device)
+    t0 = time.perf_counter()
+    host, manifest = mgr.restore(template, promote=False, follower_cache=True)
+    handle = ParamHandle(to_native(host), step=manifest["step"])
+    restore_s = time.perf_counter() - t0
+    client = WeightSyncClient(mgr, handle, template, registry=registry,
+                              replica=args.replica,
+                              max_lag_steps=args.max_lag_steps,
+                              to_native=to_native, on_stale=args.on_stale,
+                              pipeline_uploads=args.pipeline_uploads)
+    eng = Engine(cfg, handle, batch=args.batch, max_seq=args.max_seq,
+                 sync_client=client)
+    return Follower(cfg, device, mgr, client, eng, manifest, restore_s)
+
+
+def follow(args: argparse.Namespace) -> int:
+    """Serving-fleet follower: restore the latest pushed weights read-only,
+    then serve batches while tracking the push plane.
+
+    Fleet citizenship: the follower advertises its fetched chunk inventory
+    to the registry (follower cache), so the next replica pulls the delta
+    from THIS process instead of the shared tier; a replica past
+    ``--max-lag-steps`` DRAINS (refuses new batches, keeps polling, shows
+    ``draining`` fleet-wide) and re-admits once it catches up, unless
+    ``--on-stale raise`` asks for the fail-out-of-rotation behavior.
+    ``--local-root`` mounts the node-local tiers under a private directory
+    so many replicas of one host stay isolated (and peer-fetchable);
+    ``--pipeline-uploads`` overlaps the device upload of push N with the
+    fetch of push N+1."""
+    fol = open_follower(args)
+    if fol is None:
+        print("no committed weight push found; start the publisher first",
+              file=sys.stderr)
+        return 1
+    client, eng, handle = fol.client, fol.engine, fol.client.handle
+    rng = np.random.default_rng(args.seed)
+    print(f"replica {args.replica}: restored step {fol.manifest['step']} in "
+          f"{fol.restore_s:.3f} s on {fol.device}")
+    print(f"replica {args.replica}: serving step {fol.manifest['step']}")
+    try:
+        for b in range(args.batches):
+            client.sync_once()                   # fetch off the request path
+            if not eng.admit():                  # staleness gate: DRAIN, not die
+                print(f"replica {args.replica}: draining at lag {client.lag()}",
+                      file=sys.stderr)
+                deadline = time.monotonic() + args.drain_timeout_s
+                while not eng.admit():
+                    if time.monotonic() >= deadline:
+                        print(f"replica {args.replica}: drain timed out after "
+                              f"{args.drain_timeout_s:.0f}s at lag "
+                              f"{client.lag()}", file=sys.stderr)
+                        return 1
+                    time.sleep(args.poll_s)
+                    client.sync_once()
+                print(f"replica {args.replica}: re-admitted at step "
+                      f"{handle.step}")
+            # boundary: a staged push swaps in
+            eng.prefill(synthetic_prompts(fol.cfg, rng, args.batch, args.prompt_len,
+                                          fol.device))
+            eng.generate(args.gen)
+            print(f"batch {b}: served step {handle.step}, "
+                  f"lag {client.lag()}, swaps {handle.swap_count}, "
+                  f"swap_stall {handle.last_swap_s * 1e6:.0f}us")
+        # the attention kernels' launches in this process (0 where the
+        # tensors lie on the CPU and the plain versions run)
+        print(f"replica {args.replica}: launches flash {flash_attention.launches} "
+              f"flash_decode {decode_attention.launches}", file=sys.stderr)
+    finally:
+        fol.close()
+    return 0
+
+
 def run(args: argparse.Namespace) -> dict:
     """Serve once as ``args`` say.  Returns the tokens, whether the migrated
     continuation matched (None without --snapshot-at) and the timings."""
     if args.snapshot_at and not 0 < args.snapshot_at < args.gen:
         raise ValueError("--snapshot-at must lie strictly inside --gen")
     device = resolve_device(args.device)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    _full_fp32()
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
     model = M.init_params(cfg, args.seed, device)
     rng = np.random.default_rng(args.seed)
-    prompts = {"tokens": torch.as_tensor(
-        rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)),
-        dtype=torch.int32, device=device)}
+    prompts = synthetic_prompts(cfg, rng, args.batch, args.prompt_len, device)
 
     def fresh():
         return Engine(cfg, model, batch=args.batch, max_seq=args.max_seq)
@@ -132,9 +308,7 @@ def run(args: argparse.Namespace) -> dict:
 def main(argv=None) -> int:
     args = parse_args(argv)
     if args.follow:
-        print("--follow is not yet ported to repro_torch (it needs the scheduler's "
-              "cache registry); see ROADMAP.md", file=sys.stderr)
-        return 2
+        return follow(args)
     rep = run(args)
     print(f"device {rep['device']}: prefill {rep['prefill_ms']:.1f} ms, "
           f"decode {rep['decode_ms_per_token']:.2f} ms/token")

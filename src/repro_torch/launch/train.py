@@ -25,7 +25,8 @@ deterministic kernels: ``CUBLAS_WORKSPACE_CONFIG`` is set before torch is
 imported, ``torch.use_deterministic_algorithms(True)`` and TF32 off while
 ``main`` runs.  ``--metrics-out`` writes ``{"steps": [{step, loss, t, ms}],
 "saves": [per-save delta stats], "launches": {kernel: count},
-"restore_s": ..., "start_step": ...}``.
+"restore_s": ..., "restore_stats": {tier, bytes_by_tier, promoted, ...},
+"start_step": ...}``.
 """
 from __future__ import annotations
 
@@ -313,6 +314,7 @@ def _run(args, device: torch.device, trap: SignalTrap) -> int:
             "launches": {"flash": flash_attention.launches - launches0[0],
                          "chunk_fingerprints": CK.fingerprint_launches - launches0[1]},
             "restore_s": restore_s if meta is not None else None,
+            "restore_stats": ckpt.last_restore_stats if meta is not None else None,
             "start_step": start_step, "device": str(device)}))
     crm.close()
     return exit_code

@@ -306,3 +306,32 @@ def test_dtype_names_match_the_reference():
                     (torch.float64, "float64"), (torch.float16, "float16")):
         assert SER.dtype_name(t) == name
         assert SER.dtype_name(SER.host_array(torch.zeros(1, dtype=t)).dtype) == name
+
+
+@pytest.mark.parametrize("fmt", sorted(POLICIES))
+def test_committed_steps_match_the_reference(tmp_path, fmt):
+    """The port finds committed steps from the step directories' manifests
+    alone; on a store with chunk files, an uncommitted step, a torn manifest
+    write and replicas on two nodes it lists what the reference's full walk
+    lists."""
+    from repro.checkpoint.manager import committed_steps as ref_committed_steps
+    from repro_torch.checkpoint.manager import committed_steps
+
+    rng = np.random.default_rng(0)
+    tree = {"w": rng.standard_normal(5000).astype(np.float32),
+            "b": rng.standard_normal(300).astype(np.float32)}
+    mgr = CheckpointManager(TieredStore(tmp_path), CheckpointPolicy(
+        replicas=2, keep_last=10, **POLICIES[fmt]))
+    for step in (1, 4, 7):
+        tree["w"][:10] += 1.0
+        mgr.save(step, tree)
+        if step != 7:                       # 7 stays uncommitted
+            mgr.commit(step)
+    mgr.close()
+    for node_dir in sorted((tmp_path / "shared").iterdir()):
+        (node_dir / "ckpt" / "step_0000000009").mkdir(parents=True)
+        (node_dir / "ckpt" / "step_0000000009" / "MANIFEST.json.tmp").write_text("{")
+    want = ref_committed_steps(RefStore(tmp_path), "shared", "ckpt")
+    assert want == [1, 4]
+    assert committed_steps(TieredStore(tmp_path), "shared", "ckpt") == want
+    assert CheckpointManager(TieredStore(tmp_path)).steps() == want

@@ -724,6 +724,8 @@ def _cuda_inputs(B, Sq, Skv, H, Hkv, Dq, Dv, dtype, seed=0):
     (1, 64, 4, 2, 192, 128, True),     # MLA prefill shape
     (8, 128, 14, 2, 64, 64, True),     # the train forward
     (4, 512, 32, 32, 64, 64, True),    # zamba2-1.2b's shared block, G = 1
+    (4, 512, 32, 8, 128, 128, True),   # qwen3-4b's prefill, D 128, G = 4
+    (2, 300, 32, 8, 128, 128, True),
     (2, 1, 14, 2, 64, 64, True),       # ragged against the 64-row tiles
     (2, 17, 14, 2, 64, 64, True),
     (2, 63, 14, 2, 64, 64, True),
@@ -754,6 +756,8 @@ def test_flash_kernel_vs_plain(hopper, B, S, H, Hkv, Dq, Dv, causal, dtype):
     (4, 1024, 14, 2, 64, 63), (4, 1024, 14, 2, 64, 64), (4, 1024, 14, 2, 64, 65),
     (4, 1024, 14, 2, 64, 0),
     (4, 1024, 32, 32, 64, 544), (4, 1024, 32, 32, 64, 65),    # zamba2-1.2b, G = 1
+    (4, 1024, 32, 8, 128, 544), (4, 1024, 32, 8, 128, 65),    # qwen3-4b, D 128, G = 4
+    (4, 1024, 32, 8, 128, 1024),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_decode_kernel_vs_plain(hopper, B, S, H, Hkv, D, kvl, dtype):

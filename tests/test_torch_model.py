@@ -23,7 +23,7 @@ from repro_torch.models import model as M
 from repro_torch.utils.tree import flatten_with_names
 
 ATOL = 1e-4
-ARCHS = ["qwen2-0.5b", "llama3.2-1b"]
+ARCHS = ["qwen2-0.5b", "llama3.2-1b", "qwen3-4b", "granite-8b"]
 
 
 def _params(arch, seed=0):
@@ -121,3 +121,41 @@ def test_params_from_numpy_refuses_a_foreign_tree():
 def test_unported_families_raise():
     with pytest.raises(NotImplementedError):
         M.param_specs(reduced(get_config("qwen2-0.5b")).replace(mixer="mla"))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "granite-8b"])
+def test_full_width_dense_params_match_reference_on_meta(arch):
+    """The head-dim-128 archs: names, shapes and dtype of the full-width tree,
+    the untied head the reference builds, and qwen3's per-head q/k norms."""
+    cfg, cfg_j = get_config(arch), jax_get_config(arch)
+    got = flatten_with_names(M.abstract_params(cfg))
+    want = jax_flatten(JM.abstract_params(cfg_j))
+    assert [n for n, _ in got] == [n for n, _ in want]
+    for (n, t), (_, s) in zip(got, want):
+        assert tuple(t.shape) == tuple(s.shape), n
+        assert str(t.dtype).removeprefix("torch.") == str(s.dtype), n
+    names = dict(got)
+    assert ("head" in names) == (not cfg_j.tie_embeddings)
+    assert ("seg0/attn/q_norm/scale" in names) == cfg_j.qk_norm
+    if cfg_j.qk_norm:
+        assert tuple(names["seg0/attn/q_norm/scale"].shape) == (cfg.num_layers, 128)
+
+
+def test_qk_norm_at_head_dim_128_matches_reference():
+    """qwen3's q/k norms at the full head dim of 128 and its grouping of 4
+    (32 query / 8 KV heads at full width), which ``reduced()`` narrows to 32."""
+    shape = dict(head_dim=128, num_heads=8, num_kv_heads=2, num_layers=2)
+    cfg_j = jax_reduced(jax_get_config("qwen3-4b")).replace(**shape)
+    cfg = reduced(get_config("qwen3-4b")).replace(**shape)
+    tree = jax.tree_util.tree_map(np.asarray, JM.init_params(cfg_j, jax.random.PRNGKey(5)))
+    model = M.params_from_numpy(cfg, tree, "cpu")
+    params_j = jax.tree_util.tree_map(jnp.asarray, tree)
+    tokens = np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 12)).astype(np.int32)
+    lj, cache_j = JM.prefill(params_j, cfg_j, {"tokens": jnp.asarray(tokens)}, 16,
+                             impl="pallas_interpret")
+    lt, cache_t = M.prefill(model, cfg, {"tokens": torch.from_numpy(tokens)}, 16)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=0, atol=ATOL)
+    tok = np.array(jnp.argmax(lj, axis=-1).astype(jnp.int32))
+    lj, _ = JM.decode_step(params_j, cfg_j, jnp.asarray(tok), cache_j, impl="pallas_interpret")
+    lt, _ = M.decode_step(model, cfg, torch.from_numpy(tok), cache_t)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=0, atol=ATOL)
