@@ -16,11 +16,15 @@ Phases, in order; any failure exits non-zero:
    output's largest |plain| value, and in bfloat16 also element by element
    within atol + 1e-2 |plain| (SSD y 2e-2, state 4e-3; WKV6 y 7e-2, state
    8e-3); the integer checksum kernels bit for bit), with bit-equal reruns,
-   the flash kernel's gradient under autograd, and at every main-path shape
-   of each kernel: its device time and the library call's (torch.profiler's
-   kernel time per call, median/min/max of 5), its
-   call time (back-to-back calls between CUDA events, bounded by the host),
-   the plain version's time (events) and the bound;
+   the flash kernel's gradient under autograd, the scans' input gradients
+   under autograd at the train shapes (bf16 and f32) bit-equal to autograd
+   through the plain versions (their backward is that recompute: the
+   reference package has no backward kernel either), the backwards' own
+   time per call, and at every main-path shape of each kernel: its device
+   time and the library call's (torch.profiler's kernel time per call,
+   median/min/max of 5), its call time (back-to-back calls between CUDA
+   events, bounded by the host), the plain version's time (events) and the
+   bound;
 3. serve: ``repro_torch.launch.serve`` at full width and depth with a
    snapshot, migration and restore half way, for qwen2-0.5b, zamba2-1.2b,
    rwkv6-1.6b and qwen3-4b in turn; each continuation must match the
@@ -29,7 +33,8 @@ Phases, in order; any failure exits non-zero:
    attention and SSM scan call went through the kernels;
 4. reference: reduced qwen2-0.5b, zamba2-1.2b, rwkv6-1.6b, qwen3-4b and
    granite-8b in float32, the card's path (kernels) against the CPU path
-   (plain versions): equal greedy tokens, close logits;
+   (plain versions): equal greedy tokens, close logits; and one train step
+   (loss and every gradient) of reduced zamba2 and rwkv6;
 5. profile: device time by kernel and the device's busy share over one
    prefill and over decode steps at the serve phases' shapes, per arch;
 6. train state: the full-width qwen2-0.5b train state (params, AdamW m and v:
@@ -38,10 +43,11 @@ Phases, in order; any failure exits non-zero:
    one profiled train step; the same state saved twice with device
    fingerprints (the second save must copy no byte) and once on the host path;
 7. train: the C/R loop through ``repro_torch.launch.train --ckpt-delta
-   --ckpt-device-fp`` at full width, as subprocesses: A uninterrupted, B cut
-   by its walltime (exit 85), C requeued on B's checkpoint; A and C must end
-   on the same loss and the same chunk hashes, and the launch counts must
-   show every attention and every save's fingerprinting on the kernels;
+   --ckpt-device-fp`` at full width and 8 of qwen2-0.5b's 24 layers (a 3.07
+   GB state), as subprocesses: A uninterrupted, B cut by its walltime (exit
+   85), C requeued on B's checkpoint; A and C must end on the same loss and
+   the same chunk hashes, and the launch counts must show every attention
+   and every save's fingerprinting on the kernels;
 8. fleet: a publisher pushes full-width qwen2-0.5b weights (delta
    checkpoints and the registry's push plane); ``repro_torch.launch.serve
    --follow --pipeline-uploads`` as a subprocess must serve the step pushed
@@ -51,12 +57,29 @@ Phases, in order; any failure exits non-zero:
 9. scheduler: ``SlurmSim`` with two nodes runs phase 7's trainer with
    ``--ckpt-promote eager``, preempted (SIGTERM) after its first step: it
    must exit 85, be requeued onto its warm node, exit 0, and end on run A's
-   losses and chunk hashes.
+   losses and chunk hashes;
+10. train the SSM families: (a) in this process, full width and depth,
+   zamba2-1.2b (13.86 GB state) and rwkv6-1.6b (19.20 GB) take two AdamW
+   steps and one profiled step through ``train/step.py``, no checkpoint:
+   finite losses and gradient norms, the scans and the shared attention on
+   the kernels (ssd 38 and flash 6 a step; wkv6 24), and the backwards'
+   share of the device time; (b) the C/R loop of phase 7 for zamba2-1.2b at
+   full width and 6 of its 38 mamba2 layers (a 3.54 GB state): ssd 6 and
+   flash 1 a step.
+
+The C/R loops of phases 7, 9 and 10(b) run ``repro_torch.launch.train.main``
+in a child process of this script (``chip_smoke.py --train-child ARCH LAYERS
+ARGS``), which cuts the config's depth to LAYERS first; full-depth training
+is phase 10(a), in process and without saves, so that the whole keeps
+inside its time limit.  Every child has a deadline, about three times its
+expected wall time on a slow-disk machine, past which it is killed and the
+phase fails with the end of its output.
 
 It prints a ``kernel_shapes`` JSON line (every timed shape with its launches
-on the main paths), a ``kernels`` JSON line (each kernel at its first shape)
-and the card's name and power limit before the last line, and as the last
-line ``{"ok": true, "device": {...}}``.
+on the main paths), a ``phase_seconds`` JSON line (each phase's wall time and
+the GB its saves wrote), a ``kernels`` JSON line (each kernel at its first
+shape) and the card's name and power limit before the last line, and as the
+last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -129,21 +152,43 @@ SCAN_BF16_TOL = {"ssd": {"y": (2e-2, 1e-2), "state": (4e-3, 1e-2)},
                  "wkv6": {"y": (7e-2, 1e-2), "state": (8e-3, 1e-2)}}
 
 TRAIN_STEPS = 6
-TRAIN_ARGV = ["--arch", "qwen2-0.5b", "--batch", "8", "--seq", "128",
-              "--steps", str(TRAIN_STEPS), "--ckpt-delta", "--ckpt-device-fp"]
-TRAIN_DISK_BYTES = 25e9     # three runs write ~18 GB of chunks
-
+TRAIN_ARGV = ["--batch", "8", "--seq", "128", "--steps", str(TRAIN_STEPS), "--ckpt-delta",
+              "--ckpt-device-fp"]
+# the C/R loops' depth, cut so that the script keeps inside its time limit:
+# qwen2-0.5b 8 of 24 layers (phases 7, 9), zamba2-1.2b 6 of 38 (phase 10(b):
+# one shared-attention group); full width both
+TRAIN_LAYERS = {"qwen2-0.5b": 8, "zamba2-1.2b": 6}
+# kernel launches of one train step (one forward; the backwards launch none)
+STEP_LAUNCHES = {"qwen2-0.5b": {"flash": 8},
+                 "zamba2-1.2b": {"flash": 1, "ssd": 6},
+                 "full zamba2-1.2b": {"flash": 6, "ssd": 38},
+                 "full rwkv6-1.6b": {"wkv6": 24}}
+# about 10 GB on disk at a time (phase 9: two saves of the 3.07 GB state and
+# a promoted copy); the saves write ~37 GB over the script
+TRAIN_DISK_BYTES = 20e9
+# deadlines of the child processes, about 3x their wall time on a slow disk
+TRAIN_RUN_DEADLINE_S = 300
+FOLLOW_DEADLINE_S = 300
+SCHED_DEADLINE_S = 450
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
 T0 = time.perf_counter()
+PHASE_SECONDS: dict = {}          # phase -> wall seconds
+_current = ["0", T0]
 
 
 def phase(msg: str) -> None:
-    """A phase's heading, with the seconds since the script started."""
-    log(f"{msg} [{time.perf_counter() - T0:.1f}s]")
+    """A phase's heading ("phase N ..."), with the seconds since the script
+    started; the time since the previous heading goes to that phase's
+    entry of PHASE_SECONDS."""
+    now = time.perf_counter()
+    key, start = _current
+    PHASE_SECONDS[key] = PHASE_SECONDS.get(key, 0.0) + now - start
+    _current[:] = [msg.split()[1] if msg.startswith("phase ") else msg, now]
+    log(f"{msg} [{now - T0:.1f}s]")
 
 
 def card_line() -> str:
@@ -292,6 +337,7 @@ def _randn(shape, dtype, gen):
 FLASH_SHAPES = [("qwen2-0.5b prefill", 4, 512, 14, 2, 64, "qwen2-0.5b"),
                 ("zamba2-1.2b shared block", 4, 512, 32, 32, 64, "zamba2-1.2b"),
                 ("qwen2-0.5b train forward", 8, 128, 14, 2, 64, "train"),
+                ("zamba2-1.2b train forward", 8, 128, 32, 32, 64, "train-zamba2"),
                 ("qwen3-4b prefill", 4, 512, 32, 8, 128, "qwen3-4b")]
 DECODE_SHAPES = [("qwen2-0.5b decode", 4, 1024, 14, 2, 64, "qwen2-0.5b"),
                  ("zamba2-1.2b decode", 4, 1024, 32, 32, 64, "zamba2-1.2b"),
@@ -454,10 +500,40 @@ def phase_kernels() -> dict:
     if not ok:
         raise AssertionError(f"flash's gradient disagrees with the plain version's: {errs}")
     report["flash"]["grad_max_abs_err"] = max(errs[1:])
+    report["flash"]["backward_ms"] = {
+        label: backward_ms(flash_attention.flash, [_randn(sh, torch.bfloat16, gen) for sh in (
+            (B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D))], dict(causal=True))
+        for label, B, S, H, Hkv, D, source in FLASH_SHAPES if source.startswith("train")}
+    for label, t in report["flash"]["backward_ms"].items():
+        log(f"  flash backward (plain recompute), {label}: {fmt(t)} ms per call (events)")
 
     report.update(_checksum_kernels(gen))
     report.update(_scan_kernels(gen))
     return report
+
+
+def backward_ms(fn, inputs, kw, repeats: int = 5, iters: int = 3) -> dict:
+    """Time per call of the backward of ``fn(*inputs, **kw)`` under autograd
+    (every input needing a gradient), between CUDA events: the graph is
+    kept, and each call runs the backward alone for a fixed upstream
+    gradient."""
+    import torch
+
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    out = fn(*leaves, **kw)
+    go = torch.ones_like(out)
+    torch.autograd.grad(out, leaves, go, retain_graph=True)
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            torch.autograd.grad(out, leaves, go, retain_graph=True)
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop) / iters)
+    return spread(times)
 
 
 def _checksum_kernels(gen) -> dict:
@@ -629,32 +705,90 @@ def _scan_kernels(gen) -> dict:
             if not ok:
                 raise AssertionError(f"{name} disagrees with its plain version: {err}, {excess}")
             worst = max(worst, err)
-        shape, dtn = cases[name][0][:2]
-        args, _ = _scan_inputs(name, shape, dt[dtn], gen, False)
-        sets = copies_past_l2(args)
+        shapes = [_scan_timing(name, kernel, plain, cases[name][0][0], f"{source} prefill",
+                               source, True, gen),
+                  _scan_timing(name, kernel, plain, TRAIN_SCAN_SHAPES[name],
+                               f"{source} train forward", f"train-{source.split('-')[0]}",
+                               False, gen)]
+        out[name] = dict(max_abs_err=worst, shapes=shapes, **_scan_gradients(name, gen))
+    return out
 
-        def kern(*a):
-            return kernel(*a, return_state=True)
 
-        plain_ms = timed_ms(lambda *a: plain(*a, return_state=True), sets, iters=3)
-        elt = args[0].element_size()
-        if name == "ssd":
-            B, S, H, P, N = shape
-            nbytes = elt * (2 * B * S * H * P + B * S * H + 2 * B * S * N) + 8 * H + 4 * B * H * P * N
-            flops = ssd_flops(B, S, H, P, N)
-        else:
-            B, S, H, D = shape
-            nbytes = elt * 5 * B * S * H * D + 4 * H * D + 4 * B * H * D * D
-            flops = B * S * H * (4 * D * D + 5 * D)
-        b_ms, b_by = bound(nbytes, flops, dtn)
-        r = dict(kernel=name, label=f"{source} prefill", source=source,
-                 shape=f"{'x'.join(map(str, shape))} {dtn}, final state out",
-                 ms=device_ms(kern, sets), call_ms=call_ms(kern, sets), library_ms=None,
-                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        out[name] = dict(max_abs_err=worst, shapes=[r])
-        log(f"  {name} timing ({r['shape']}): device ms {fmt(r['ms'])}  call_ms "
-            f"{fmt(r['call_ms'])}  plain_ms {plain_ms:.4f}  library none  bound_ms "
-            f"{b_ms:.5f} ({b_by}; {nbytes} bytes, {flops} flops)")
+# the scans' shapes on the train paths (B8 S128, no state in or out)
+TRAIN_SCAN_SHAPES = {"ssd": (8, 128, 64, 64, 64), "wkv6": (8, 128, 32, 64)}
+
+
+def _scan_timing(name, kernel, plain, shape, label, source, state_out, gen) -> dict:
+    """A bfloat16 scan's device time, call time, plain time and bound at
+    ``shape``, with the final state written or not."""
+    import torch
+
+    args, _ = _scan_inputs(name, shape, torch.bfloat16, gen, False)
+    sets = copies_past_l2(args)
+
+    def kern(*a):
+        return kernel(*a, return_state=state_out)
+
+    plain_ms = timed_ms(lambda *a: plain(*a, return_state=state_out), sets, iters=3)
+    elt = args[0].element_size()
+    if name == "ssd":
+        B, S, H, P, N = shape
+        nbytes = (elt * (2 * B * S * H * P + B * S * H + 2 * B * S * N) + 8 * H
+                  + state_out * 4 * B * H * P * N)
+        flops = ssd_flops(B, S, H, P, N)
+    else:
+        B, S, H, D = shape
+        nbytes = elt * 5 * B * S * H * D + 4 * H * D + state_out * 4 * B * H * D * D
+        flops = B * S * H * (4 * D * D + 5 * D)
+    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    r = dict(kernel=name, label=label, source=source,
+             shape=f"{'x'.join(map(str, shape))} bfloat16"
+                   + (", final state out" if state_out else ", no state"),
+             ms=device_ms(kern, sets), call_ms=call_ms(kern, sets), library_ms=None,
+             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    log(f"  {name} timing, {label} ({r['shape']}): device ms {fmt(r['ms'])}  call_ms "
+        f"{fmt(r['call_ms'])}  plain_ms {plain_ms:.4f}  library none  bound_ms "
+        f"{b_ms:.5f} ({b_by}; {nbytes} bytes, {flops} flops)")
+    return r
+
+
+def _scan_gradients(name, gen) -> dict:
+    """At the train shape, in bfloat16 and float32: the scan under autograd
+    (the kernel forward, one launch, none in the backward) gives each input
+    the gradient of autograd through the plain version, bit for bit, for the
+    same fixed upstream gradient; and the backward's own time per call."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.kernels import wkv6 as WKV
+
+    mod, plain = (SSD, ref.ssd) if name == "ssd" else (WKV, ref.wkv6)
+    shape = TRAIN_SCAN_SHAPES[name]
+    out = {"backward_ms": {}}
+    for dtn, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        args, _ = _scan_inputs(name, shape, dtype, gen, False)
+        leaves = [a.clone().requires_grad_() for a in args]
+        n0 = mod.launches
+        y = getattr(mod, name)(*leaves)
+        go = torch.randn(y.shape, generator=gen, device="cuda").to(y.dtype)
+        got = torch.autograd.grad(y, leaves, go)
+        launches = mod.launches - n0
+        plain_leaves = [a.clone().requires_grad_() for a in args]
+        want = torch.autograd.grad(plain(*plain_leaves), plain_leaves, go)
+        torch.cuda.synchronize()
+        same = [bool(torch.equal(a, b)) and a.dtype == t.dtype for a, b, t in zip(got, want, args)]
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        ok = all(same) and finite and launches == 1 and y.grad_fn is not None
+        log(f"  {name} gradient {'x'.join(map(str, shape))} {dtn}: each input's gradient "
+            f"bit-equal to autograd through the plain version {same}, finite {finite}, "
+            f"{launches} launch (forward only) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name}'s gradient under autograd is not the plain "
+                                 f"version's: {same}, finite {finite}, launches {launches}")
+        out["backward_ms"][dtn] = backward_ms(getattr(mod, name), list(args), {})
+        log(f"  {name} backward (plain recompute) {dtn}: "
+            f"{fmt(out['backward_ms'][dtn])} ms per call (events)")
     return out
 
 
@@ -787,8 +921,68 @@ def phase_reference(arch: str, prompt_len: int, max_seq: int, steps: int = 8) ->
     return {"tokens_equal": same, "max_logit_err": err}
 
 
+# phase 4's train step: each gradient within 10x the scan's float32 tolerance
+# (SCAN_TOL: SSD 5e-5, WKV6 1e-4) of the leaf's largest |gradient| on the
+# CPU, the loss within the tolerance itself of |loss|.  The factor covers
+# the products' other summation order on the card: the reduced models'
+# float32 gradients are ill conditioned enough that two float32 evaluations
+# on the CPU differ by up to 2.6e-4 of a leaf's largest |gradient| (rwkv6;
+# tests/test_torch_ssm_train.py), against 1e-3 here.
+TRAIN_GRAD_FACTOR = 10
+
+
+def phase_reference_train(arch: str, seq: int = 70) -> dict:
+    """One train step (loss and every gradient) of a reduced SSM model in
+    float32: the card's path (the scan kernels forward under autograd, the
+    plain versions' gradients) against the CPU path (the plain versions)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.kernels import wkv6 as WKV
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.train import step as TS
+    from repro_torch.utils.tree import flatten_with_names, tree_map
+
+    cfg = reduced(get_config(arch))
+    params = L.materialize(M.param_specs(cfg), 0, torch.float32, "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, seq)).astype(np.int32))
+    mods = {"flash": flash_attention, "ssd": SSD, "wkv6": WKV}
+    out = []
+    for dev in ("cpu", "cuda"):
+        for m in mods.values():
+            m.launches = 0
+        loss, _, grads = TS.loss_and_grads(tree_map(lambda t: t.to(dev), params), cfg,
+                                           {"tokens": tokens.to(dev)})
+        counts = {k: m.launches for k, m in mods.items()}
+        out.append((float(loss), {n: g.cpu() for n, g in flatten_with_names(grads)}, counts))
+    (l_cpu, g_cpu, _), (l_gpu, g_gpu, counts) = out
+    tol = SCAN_TOL["ssd" if cfg.mixer == "mamba2" else "wkv6"]["float32"]
+    rel = {n: (g_gpu[n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+           for n, g in g_cpu.items()}
+    worst = max(rel, key=rel.get)
+    finite = all(bool(torch.isfinite(g).all()) for g in g_gpu.values())
+    plan = M.layer_plan(cfg)
+    want = ({"flash": plan[0].count, "ssd": cfg.num_layers, "wkv6": 0} if cfg.mixer == "mamba2"
+            else {"flash": 0, "ssd": 0, "wkv6": cfg.num_layers})
+    log(f"  reduced {arch} f32 train step B2 S{seq}, cuda vs cpu: loss {l_gpu!r} / {l_cpu!r} "
+        f"(err {abs(l_gpu - l_cpu):.3g}, tol {tol} |loss|); gradients of {len(rel)} leaves, "
+        f"worst {rel[worst]:.3g} of the leaf's max |cpu| at {worst} (tol "
+        f"{TRAIN_GRAD_FACTOR * tol:g}); finite {finite}; launches {counts} (expected {want})")
+    if (abs(l_gpu - l_cpu) > tol * abs(l_cpu) or rel[worst] > TRAIN_GRAD_FACTOR * tol
+            or not finite):
+        raise AssertionError("the card's train step disagrees with the CPU's")
+    if counts != want:
+        raise AssertionError(f"train step launches {counts} != {want}")
+    return {"loss_err": abs(l_gpu - l_cpu), "grad_rel_err": rel[worst]}
+
+
 def _work_dir() -> Path:
-    """A scratch directory for the checkpoints of phases 6 and 7, on whichever
+    """A scratch directory for the checkpoints of phases 6-10, on whichever
     of the temporary directory and the repository's ``build/`` has more free
     space; fails clearly below TRAIN_DISK_BYTES."""
     bases = [Path(tempfile.gettempdir()), ROOT / "build"]
@@ -798,7 +992,8 @@ def _work_dir() -> Path:
     base = max(free, key=free.get)
     log("  free disk: " + ", ".join(f"{b} {f / 1e9:.1f} GB" for b, f in free.items()))
     if free[base] < TRAIN_DISK_BYTES:
-        raise RuntimeError(f"the train phases write ~18 GB of checkpoints; the most free "
+        raise RuntimeError(f"the train phases write ~37 GB of checkpoints, up to ~10 GB at a "
+                           f"time; the most free "
                            f"space is {free[base] / 1e9:.1f} GB at {base}, under "
                            f"{TRAIN_DISK_BYTES / 1e9:.0f} GB")
     return Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=base))
@@ -942,8 +1137,7 @@ def phase_state(work: Path) -> dict:
     del state, named, fps
     torch.cuda.empty_cache()
     return {"step_ms": wall_s * 1e3, "busy_share": busy_s / wall_s, "tree_ms": tree,
-            "tree_bound_ms": tree_bound, "fp_launches_per_save": want_launches,
-            "saves": saves}
+            "tree_bound_ms": tree_bound, "saves": saves}
 
 
 def _child_env() -> dict:
@@ -954,16 +1148,53 @@ def _child_env() -> dict:
                                else []))}
 
 
-def _train_run(work: Path, tag: str, ckpt: str, extra: list) -> tuple[int, dict]:
+def _tail(out) -> str:
+    if isinstance(out, bytes):
+        out = out.decode(errors="replace")
+    return (out or "")[-3000:]
+
+
+def train_cmd(arch: str, ckpt_dir: Path, metrics: Path, extra: list) -> list:
+    """The C/R loop's command: ``launch.train.main`` at TRAIN_LAYERS[arch]
+    layers, in a child process of this script."""
+    return [sys.executable, str(ROOT / "chip_smoke.py"), "--train-child", arch,
+            str(TRAIN_LAYERS[arch]), *TRAIN_ARGV, "--ckpt-dir", str(ckpt_dir),
+            "--metrics-out", str(metrics), *extra]
+
+
+def train_child(argv: list) -> int:
+    """``chip_smoke.py --train-child ARCH LAYERS ARGS``: ``python -m
+    repro_torch.launch.train --arch ARCH ARGS`` with the config's depth cut
+    to LAYERS (``get_config`` reads the module's ``CONFIG``)."""
+    import dataclasses
+    import importlib
+
+    from repro_torch.configs import base
+    from repro_torch.launch import train
+
+    arch, layers = argv[0], int(argv[1])
+    mod = importlib.import_module(f"repro_torch.configs.{base._MODULES[arch]}")
+    mod.CONFIG = dataclasses.replace(mod.CONFIG, num_layers=layers)
+    return train.main(["--arch", arch, *argv[2:]])
+
+
+def _train_run(work: Path, arch: str, tag: str, ckpt: str, extra: list) -> tuple[int, dict]:
     out = work / f"{tag}.json"
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_ARGV,
-           "--ckpt-dir", str(work / ckpt), "--metrics-out", str(out), *extra]
+    cmd = train_cmd(arch, work / ckpt, out, extra)
+    launched = time.time()
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, env=_child_env(), capture_output=True, text=True, timeout=900)
+    try:
+        r = subprocess.run(cmd, env=_child_env(), capture_output=True, text=True,
+                           timeout=TRAIN_RUN_DEADLINE_S)
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(f"train run {tag} ({arch}) passed its deadline of "
+                             f"{TRAIN_RUN_DEADLINE_S}s and was killed; its output ended:\n"
+                             f"{_tail(e.stdout)}\n{_tail(e.stderr)}") from None
     wall = time.perf_counter() - t0
+    ended = time.time()
     if not out.exists():
         raise AssertionError(f"train run {tag} wrote no metrics (exit {r.returncode}):\n"
-                             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+                             f"{_tail(r.stdout)}\n{_tail(r.stderr)}")
     m = json.loads(out.read_text())
     steps = m["steps"]
     log(f"  run {tag}: exit {r.returncode} in {wall:.1f}s, steps "
@@ -972,12 +1203,15 @@ def _train_run(work: Path, tag: str, ckpt: str, extra: list) -> tuple[int, dict]
         f"launches {m['launches']}")
     log("    step ms " + " ".join(f"{s['ms']:.1f}" for s in steps)
         + "  losses " + " ".join(repr(s["loss"]) for s in steps))
+    log(f"    wall: {steps[0]['t'] - steps[0]['ms'] / 1e3 - launched:.1f}s to the first step, "
+        f"{steps[-1]['t'] - steps[0]['t'] + steps[0]['ms'] / 1e3:.1f}s of steps, "
+        f"{ended - steps[-1]['t']:.1f}s after the last (its save, the exit)")
     for sv in m["saves"]:
         log(f"    save at step {sv['step']}: stall_s {sv.get('stall_s', 0):.3f} fp_device_s "
             f"{sv.get('fp_device_s', 0):.4f} d2h_bytes {sv.get('d2h_bytes')} d2h_s "
             f"{sv.get('d2h_s', 0):.3f} hash_s {sv.get('hash_s', 0):.3f} write_s "
             f"{sv.get('write_s', 0):.3f} chunks {sv.get('chunks_total')} clean "
-            f"{sv.get('chunks_clean_device')}")
+            f"{sv.get('chunks_clean_device')} bytes_written {sv.get('bytes_written')}")
     return r.returncode, m
 
 
@@ -991,21 +1225,50 @@ def _final_hashes(ckpt_dir: Path) -> dict:
     return {e["path"]: [c["hash"] for c in e["chunks"]] for e in man["leaves"]}
 
 
-def _train_launches(m: dict, fp_per_save: int) -> dict:
-    """What a train run's launch counts must be: flash 24 per step (one
-    forward of 24 layers), the fingerprint kernel's per device-fp save."""
-    return {"flash": 24 * len(m["steps"]), "chunk_fingerprints": fp_per_save * len(m["saves"])}
+def fp_launches_for(arch: str, layers: int) -> tuple[int, int]:
+    """(fingerprint launches of one device-fp save, state bytes) of the train
+    state of ``arch`` cut to ``layers``, from its shapes (meta tensors)."""
+    import dataclasses
+
+    from repro_torch.checkpoint import serialization as SER
+    from repro_torch.configs.base import get_config
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS
+    from repro_torch.utils.tree import flatten_with_names
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    named = flatten_with_names(TS.abstract_train_state(cfg, adamw.OptConfig()))
+    nbytes = sum(x.numel() * x.element_size() for _, x in named)
+    return fp_launches_per_save(named, SER.DELTA_CHUNK_BYTES), nbytes
 
 
-def phase_train(work: Path, fp_per_save: int) -> dict:
-    """The paper's C/R loop at full width, as a user runs it: A uninterrupted;
-    B with a walltime its margin exceeds, so it checkpoints after its first
-    step and exits 85; C requeued on B's directory, restoring and finishing."""
-    rc_a, a = _train_run(work, "A", "a", [])
+def _train_launches(m: dict, per_step: dict, fp_per_save: int) -> dict:
+    """What a train run's launch counts must be: ``per_step`` a step (one
+    forward; the backwards launch no kernel), the fingerprint kernel's per
+    device-fp save."""
+    n = len(m["steps"])
+    return {"flash": per_step.get("flash", 0) * n, "ssd": per_step.get("ssd", 0) * n,
+            "wkv6": per_step.get("wkv6", 0) * n,
+            "chunk_fingerprints": fp_per_save * len(m["saves"])}
+
+
+def saved_bytes(*runs) -> int:
+    return sum(sv.get("bytes_written") or 0 for m in runs for sv in m["saves"])
+
+
+def phase_train(work: Path, arch: str) -> dict:
+    """The paper's C/R loop at full width and TRAIN_LAYERS[arch] layers, as a
+    user runs it: A uninterrupted; B with a walltime its margin exceeds, so it
+    checkpoints after its first step and exits 85; C requeued on B's
+    directory, restoring and finishing."""
+    fp_per_save, nbytes = fp_launches_for(arch, TRAIN_LAYERS[arch])
+    log(f"  {arch} at {TRAIN_LAYERS[arch]} layers: a {nbytes} byte state "
+        f"({nbytes / 1e9:.2f} GB), {fp_per_save} fingerprint launches per save")
+    rc_a, a = _train_run(work, arch, "A", "a", [])
     hashes_a = _final_hashes(work / "a")
     shutil.rmtree(work / "a")
-    rc_b, b = _train_run(work, "B", "b", ["--walltime", "0.5", "--margin", "100"])
-    rc_c, c = _train_run(work, "C", "b", [])
+    rc_b, b = _train_run(work, arch, "B", "b", ["--walltime", "0.5", "--margin", "100"])
+    rc_c, c = _train_run(work, arch, "C", "b", [])
     if (rc_a, rc_b, rc_c) != (0, 85, 0):
         raise AssertionError(f"exit codes A/B/C {(rc_a, rc_b, rc_c)}, expected (0, 85, 0)")
     if [s["step"] for s in b["steps"]] != [0] or c["start_step"] != 1:
@@ -1017,17 +1280,20 @@ def phase_train(work: Path, fp_per_save: int) -> dict:
         f" every step's loss equal {same_losses}; final chunk hashes identical {same_hashes}")
     if loss_a != loss_c or not same_losses or not same_hashes:
         raise AssertionError("the requeued run did not finish bit-identical to run A")
+    if not all(math.isfinite(s["loss"]) for s in a["steps"]):
+        raise AssertionError(f"non-finite losses: {[s['loss'] for s in a['steps']]}")
     counts = {}
     for tag, m in (("A", a), ("B", b), ("C", c)):
-        want = _train_launches(m, fp_per_save)
+        want = _train_launches(m, STEP_LAUNCHES[arch], fp_per_save)
         if m["launches"] != want:
             raise AssertionError(f"run {tag}: launches {m['launches']}, expected {want}")
         for k, n in m["launches"].items():
             counts[k] = counts.get(k, 0) + n
-    log(f"  launches over A+B+C {counts} (flash 24 per step, chunk_fingerprints "
-        f"{fp_per_save} per device-fp save)")
+    log(f"  launches over A+B+C {counts} ({STEP_LAUNCHES[arch]} per step, "
+        f"chunk_fingerprints {fp_per_save} per device-fp save)")
     shutil.rmtree(work / "b")
-    return {"counts": counts, "A": a, "B": b, "C": c, "hashes_a": hashes_a}
+    return {"counts": counts, "A": a, "B": b, "C": c, "hashes_a": hashes_a,
+            "fp_per_save": fp_per_save, "saved_bytes": saved_bytes(a, b, c)}
 
 
 FLEET_ARGV = ["--arch", "qwen2-0.5b", "--batch", "4", "--prompt-len", "512", "--gen", "32",
@@ -1081,7 +1347,7 @@ def phase_fleet(work: Path) -> dict:
     fol = None
     try:
         t0 = time.perf_counter()
-        pub.save(1, trees[1])
+        parts = [pub.save(1, trees[1])]
         push_s = {1: time.perf_counter() - t0 + _publish(pub, registry, 1)}
         # the same wiring in this process, uploads on the upload thread: it
         # restores step 1 now, and takes step 2 after the subprocess below
@@ -1098,7 +1364,7 @@ def phase_fleet(work: Path) -> dict:
         # and announced) once the subprocess follower has served batch 0, so
         # that it lands while that follower runs, not after its last batch
         t0 = time.perf_counter()
-        pub.save(2, trees[2])
+        parts.append(pub.save(2, trees[2]))
         save2_s = time.perf_counter() - t0
         cmd = [sys.executable, "-m", "repro_torch.launch.serve", *FLEET_ARGV, "--follow",
                "--batches", str(FLEET_BATCHES), "--ckpt-dir", str(weights),
@@ -1106,7 +1372,13 @@ def phase_fleet(work: Path) -> dict:
         t0 = time.perf_counter()
         proc = subprocess.Popen(cmd, env=_child_env(), stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        watchdog = threading.Timer(600, proc.kill)
+        late = threading.Event()
+
+        def kill_late():
+            late.set()
+            proc.kill()
+
+        watchdog = threading.Timer(FOLLOW_DEADLINE_S, kill_late)
         watchdog.start()
         lines = []
         try:
@@ -1121,6 +1393,10 @@ def phase_fleet(work: Path) -> dict:
         finally:
             watchdog.cancel()
         wall = time.perf_counter() - t0
+        if late.is_set():
+            raise AssertionError(f"the follower subprocess passed its deadline of "
+                                 f"{FOLLOW_DEADLINE_S}s and was killed; its output ended:\n"
+                                 + "\n".join(lines[-40:]))
         batches = [ln for ln in lines if ln.startswith("batch ")]
         advert = weights / REGISTRY_DIRNAME / "followers" / "r0.json"
         served2 = any("served step 2," in ln for ln in batches[1:])
@@ -1180,10 +1456,11 @@ def phase_fleet(work: Path) -> dict:
     torch.cuda.empty_cache()
     counts = {k: n + sub_counts[k] for k, n in counts.items()}
     return {"counts": counts, "subprocess_wall_s": wall, "batch_lines": batches,
+            "saved_bytes": sum(pt["delta"].get("bytes_written") or 0 for pt in parts),
             "subprocess_restore": restored, "restore_s": restore_s, "fetch_s": rec["fetch_s"]}
 
 
-def phase_sched(work: Path, train_rep: dict, fp_per_save: int) -> dict:
+def phase_sched(work: Path, train_rep: dict) -> dict:
     """Phase 7's trainer under ``SlurmSim`` with two nodes and a cache
     affinity on its checkpoint directory: preempted (SIGTERM, scancel-style)
     once it has logged step 0, requeued onto the node whose promoted cache is
@@ -1200,8 +1477,8 @@ def phase_sched(work: Path, train_rep: dict, fp_per_save: int) -> dict:
             consumed[rec.requeues - 1] = rec.consumed_s
 
     sim = SlurmSim(work / "sim", nodes=2, pre_launch=before_launch)
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_ARGV,
-           "--ckpt-dir", str(ckpt), "--metrics-out", str(metrics), "--ckpt-promote", "eager"]
+    arch = "qwen2-0.5b"
+    cmd = train_cmd(arch, ckpt, metrics, ["--ckpt-promote", "eager"])
     jid = sim.submit(JobSpec(name="train", cmd=cmd, walltime_s=900, max_requeues=2,
                              env=_child_env(),
                              cache_affinity=CacheAffinity(ckpt_dir=str(ckpt), warm_wait_s=60)))
@@ -1217,7 +1494,12 @@ def phase_sched(work: Path, train_rep: dict, fp_per_save: int) -> dict:
     watcher = threading.Thread(target=preempt_after_step0, daemon=True)
     t0 = time.perf_counter()
     watcher.start()
-    sim.run(timeout_s=900)
+    try:
+        sim.run(timeout_s=SCHED_DEADLINE_S)
+    except TimeoutError:
+        tail = out.read_text()[-3000:] if out.exists() else "(no output)"
+        raise AssertionError(f"the SlurmSim job passed its deadline of {SCHED_DEADLINE_S}s "
+                             f"and was killed; its output ended:\n{tail}") from None
     watcher.join(timeout=10)
     wall = time.perf_counter() - t0
     rec = sim.job(jid)
@@ -1251,14 +1533,166 @@ def phase_sched(work: Path, train_rep: dict, fp_per_save: int) -> dict:
         raise AssertionError("the requeued job did not finish bit-identical to run A")
     counts = {}
     for k, m in sorted(attempts.items()):
-        if m["launches"] != _train_launches(m, fp_per_save):
+        if m["launches"] != _train_launches(m, STEP_LAUNCHES[arch], train_rep["fp_per_save"]):
             raise AssertionError(f"attempt {k}: launches {m['launches']}")
         for name, n in m["launches"].items():
             counts[name] = counts.get(name, 0) + n
     log(f"  launches over both attempts {counts}")
+    promoted = sum(f.stat().st_size for f in (sim.workdir / "nodes").rglob("*")
+                   if f.is_file())
     shutil.rmtree(ckpt, ignore_errors=True)
     shutil.rmtree(sim.workdir, ignore_errors=True)
-    return {"counts": counts, "walls": walls, "restore_s": attempts[1]["restore_s"]}
+    return {"counts": counts, "walls": walls, "restore_s": attempts[1]["restore_s"],
+            "saved_bytes": saved_bytes(*attempts.values()), "promoted_bytes": promoted}
+
+
+def _recompute_marked(ref, names: list, cycles: int = 100):
+    """``ref.recompute_grads`` (every kernel wrapper's backward) between two
+    marker kernels, recording each call's plain version in ``names``: in a
+    trace of one stream, the kernels between a pair of markers are that
+    backward's."""
+    import torch
+
+    plain_grads = ref.recompute_grads
+
+    def marked(plain, *args, **kw):
+        names.append(plain.__name__)
+        torch.cuda._sleep(cycles)
+        try:
+            return plain_grads(plain, *args, **kw)
+        finally:
+            torch.cuda._sleep(cycles)
+
+    return marked
+
+
+def _read_marked_trace(events, names: list):
+    """(device us of the traced step, {plain version: device us of its
+    recomputes}) from its CUDA events sorted by start, whose recomputes are
+    bracketed by marker kernels (``_recompute_marked``); None where the
+    trace cannot be whole: a marker missing, or two recomputes of one plain
+    version (the same operations) showing different kernel counts."""
+    if sum(1 for e in events if MARKER in e.name) != 2 * len(names):
+        return None
+    busy_us, recompute_us, kernels = 0.0, {}, {}
+    pairs, inside, n = iter(names), None, 0
+    for e in events:
+        if MARKER in e.name:
+            if inside is not None:
+                kernels.setdefault(inside, set()).add(n)
+            inside, n = (next(pairs), 0) if inside is None else (None, 0)
+            continue
+        busy_us += e.time_range.elapsed_us()
+        if inside is not None:
+            n += 1
+            recompute_us[inside] = recompute_us.get(inside, 0.0) + e.time_range.elapsed_us()
+    if any(len(c) != 1 for c in kernels.values()):
+        return None
+    return busy_us, recompute_us
+
+
+def phase_train_full(arch: str) -> dict:
+    """Full width and depth, in this process, through ``train/step.py`` as
+    the CLI calls it: two AdamW steps at B8 S128, then one traced by
+    ``torch.profiler`` (CUDA activity; a trace that dropped events is taken
+    again with the next step, at most twice); no checkpoint.  Device time =
+    the summed durations of the traced step's device events; busy share =
+    that over the untraced step's wall time; the backwards' share = the
+    device time between the marker kernels that bracket each plain
+    recompute (``_recompute_marked``) during the traced step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import flash_attention, ref
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.kernels import wkv6 as WKV
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS
+    from repro_torch.utils.tree import flatten_with_names
+
+    cfg = get_config(arch)
+    oc = adamw.OptConfig(warmup_steps=10, decay_steps=TRAIN_STEPS)
+    t0 = time.perf_counter()
+    state = TS.init_train_state(cfg, oc, 0, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nbytes = sum(x.numel() * x.element_size() for _, x in flatten_with_names(state))
+    pipe = SyntheticTokens(cfg, 8, 128)
+    batches = [{"tokens": torch.from_numpy(pipe.batch_at(i)["tokens"]).cuda()}
+               for i in range(5)]
+    step = TS.make_train_step(cfg, oc)
+    mods = {"flash": flash_attention, "ssd": SSD, "wkv6": WKV}
+    for m in mods.values():
+        m.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    metrics = []
+    state, m = step(state, batches[0])                  # warm
+    metrics.append(m)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, batches[1])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    metrics.append(m)
+    plain_grads = ref.recompute_grads
+    for attempt in range(3):
+        names: list = []
+        ref.recompute_grads = _recompute_marked(ref, names)
+        try:
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                warm = torch.zeros(1, device="cuda")
+                for _ in range(3):          # the profiler can miss a window's first launches
+                    warm.add_(1)
+                torch.cuda.synchronize()
+                state, m = step(state, batches[2 + attempt])
+                torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t0
+        finally:
+            ref.recompute_grads = plain_grads
+        metrics.append(m)
+        t0 = time.perf_counter()
+        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        trace = _read_marked_trace(events, names)
+        parse_s = time.perf_counter() - t0
+        if trace is not None:
+            break
+        log(f"    (traced step {attempt + 1}: {len(events)} device events, the recomputes' "
+            "kernel counts differ or markers are missing: events were dropped; taken again)")
+    counts = {k: mod.launches for k, mod in mods.items()}
+    busy_us, recompute_us = trace if trace is not None else (float("nan"), {})
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    per_step = STEP_LAUNCHES[f"full {arch}"]
+    want = {k: per_step.get(k, 0) * len(metrics) for k in mods}
+    busy = busy_us / 1e6 / wall_s
+    shares = {k: v / busy_us for k, v in recompute_us.items()}
+    calls = {k: names.count(k) for k in sorted(set(names))}
+    log(f"  {arch}: state {nbytes} bytes ({nbytes / 1e9:.2f} GB), init {init_s:.1f}s; "
+        f"losses {losses}; grad norms {gnorms}; launches {counts} (expected {want})")
+    log(f"  step B8 S128: wall {wall_s * 1e3:.1f} ms untraced ({traced_s * 1e3:.1f} traced, "
+        f"{parse_s:.1f}s to read the trace), device {busy_us / 1e3:.1f} ms = "
+        f"{100 * busy:.1f}% busy; the plain recomputes (the backwards of the kernels, "
+        f"calls {calls}): " + ", ".join(f"{k} {v / 1e3:.1f} ms ({100 * shares[k]:.1f}%)"
+                                         for k, v in recompute_us.items())
+        + f" of the device time; peak device memory {peak / 1e9:.2f} GB")
+    if trace is None:
+        log("  device time not measured: the profiler dropped events in three traced steps")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"{arch}: non-finite loss or gradient norm: {losses}, {gnorms}")
+    if counts != want:
+        raise AssertionError(f"{arch}: launches {counts} != {want}")
+    del state, step, prof, events
+    torch.cuda.empty_cache()
+    return {"counts": counts, "losses": losses, "grad_norms": gnorms, "step_ms": wall_s * 1e3,
+            "device_ms": busy_us / 1e3, "busy_share": busy, "recompute_ms": {
+                k: v / 1e3 for k, v in recompute_us.items()},
+            "recompute_share": shares, "peak_bytes": peak, "state_bytes": nbytes}
 
 
 def main() -> int:
@@ -1288,6 +1722,8 @@ def main() -> int:
     phase_reference("rwkv6-1.6b", 70, 96)
     phase_reference("qwen3-4b", 24, 64)
     phase_reference("granite-8b", 24, 64)
+    phase_reference_train("zamba2-1.2b")
+    phase_reference_train("rwkv6-1.6b")
     for arch in SERVE_ARCHS:
         phase(f"phase 5 where the serving path's device time goes (torch.profiler), {arch}")
         phase_profile(arch)
@@ -1295,24 +1731,40 @@ def main() -> int:
     try:
         phase("phase 6 the full-width train state: fingerprints, a profiled step, saves")
         state_rep = phase_state(work)
-        phase("phase 7 train qwen2-0.5b at full width through the C/R loop "
-            "(--ckpt-delta --ckpt-device-fp): A, B preempted, C requeued")
-        train_rep = phase_train(work, state_rep["fp_launches_per_save"])
+        phase(f"phase 7 train qwen2-0.5b at full width and {TRAIN_LAYERS['qwen2-0.5b']} layers "
+              "through the C/R loop (--ckpt-delta --ckpt-device-fp): A, B preempted, C requeued")
+        train_rep = phase_train(work, "qwen2-0.5b")
         phase("phase 8 fleet: serve --follow at full width (qwen2-0.5b) on pushed weights")
         fleet_rep = phase_fleet(work)
         phase("phase 9 scheduler: SlurmSim preempts the phase 7 trainer and requeues it "
-            "onto its warm node")
-        sched_rep = phase_sched(work, train_rep, state_rep["fp_launches_per_save"])
+              "onto its warm node")
+        sched_rep = phase_sched(work, train_rep)
+        full_rep = {}
+        for arch in ("zamba2-1.2b", "rwkv6-1.6b"):
+            phase(f"phase 10(a) train {arch} at full width and depth, in process")
+            full_rep[arch] = phase_train_full(arch)
+        phase(f"phase 10(b) train zamba2-1.2b at full width and "
+              f"{TRAIN_LAYERS['zamba2-1.2b']} layers through the C/R loop: A, B preempted, "
+              "C requeued")
+        ssm_rep = phase_train(work, "zamba2-1.2b")
+        phase("done")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     # launches over every main-path run of this script: the four serve runs,
-    # the train runs of phase 7, the in-process follower and the scheduled
-    # job (the checksum kernel is on no main path)
+    # the train runs of phases 7 and 10, the in-process follower and the
+    # scheduled job (the checksum kernel is on no main path)
     runs = {arch: r["counts"] for arch, r in serve_rep.items()}
     runs["train"] = train_rep["counts"]
     runs["fleet"] = fleet_rep["counts"]
     runs["sched"] = sched_rep["counts"]
+    runs["train-zamba2"] = {k: full_rep["zamba2-1.2b"]["counts"].get(k, 0) + n
+                            for k, n in ssm_rep["counts"].items()}
+    runs["train-rwkv6"] = full_rep["rwkv6-1.6b"]["counts"]
+    gb = {"6": sum(sv.get("bytes_written") or 0 for sv in state_rep["saves"].values()),
+          "7": train_rep["saved_bytes"], "8": fleet_rep["saved_bytes"],
+          "9": sched_rep["saved_bytes"], "9 promoted": sched_rep["promoted_bytes"],
+          "10(b)": ssm_rep["saved_bytes"]}
     sources = {"flash": ("src/repro_torch/csrc/flash_attention.cu",
                          "src/repro/kernels/flash_attention.py:75"),
                "flash_decode": ("src/repro_torch/csrc/decode_attention.cu",
@@ -1341,6 +1793,8 @@ def main() -> int:
     # every timed shape with its launches on the main paths (ms and library_ms:
     # device time, median/min/max of 5; call_ms: back-to-back calls by events)
     print(json.dumps({"kernel_shapes": per_shape}))
+    print(json.dumps({"phase_seconds": PHASE_SECONDS,
+                      "saves_gb": {k: v / 1e9 for k, v in gb.items()}}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1350,4 +1804,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--train-child"]:
+        sys.exit(train_child(sys.argv[2:]))
     sys.exit(main())

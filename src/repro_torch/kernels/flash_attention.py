@@ -104,13 +104,9 @@ class _Flash(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        need = ctx.needs_input_grad[:3]
-        inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
-        with torch.enable_grad():
-            out = ref.attention(*inputs, causal=ctx.causal, scale=ctx.scale)
-        grads = iter(torch.autograd.grad(out, [t for t in inputs if t.requires_grad],
-                                         grad_out))
-        return (*(next(grads) if n else None for n in need), None, None)
+        grads = ref.recompute_grads(ref.attention, ctx.saved_tensors, ctx.needs_input_grad[:3],
+                                    (grad_out,), causal=ctx.causal, scale=ctx.scale)
+        return (*grads, None, None)
 
 
 def _launch(q, k, v, causal: bool, scale: float) -> torch.Tensor:

@@ -11,9 +11,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .rwkv6_scan import wkv6_step
-from .ssd_scan import ssd_step
-
 PRIME = 16777619
 _M32 = 0xFFFFFFFF
 
@@ -51,6 +48,27 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
 
 
+def recompute_grads(plain, saved, need, grad_outputs, **kw):
+    """The backward of a kernel wrapper (``_Flash``, ``_SSD``, ``_WKV6``):
+    ``plain(*saved, **kw)`` run again under autograd from the saved inputs,
+    then differentiated for ``grad_outputs`` (one per output; ``None`` for an
+    output that got no gradient).  Returns one gradient per saved input, in
+    its own dtype, ``None`` where ``need`` is false.  The result is the
+    plain version's own gradient, bit for bit: the same operations on the
+    same values."""
+    inputs = [t.detach().requires_grad_(bool(n)) for t, n in zip(saved, need)]
+    wrt = [t for t in inputs if t.requires_grad]
+    with torch.enable_grad():
+        out = plain(*inputs, **kw)
+    outs = out if isinstance(out, tuple) else (out,)
+    pairs = [(o, g) for o, g in zip(outs, grad_outputs) if g is not None]
+    if not wrt or not pairs:
+        return tuple(None for _ in inputs)
+    grads = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                                     allow_unused=True))
+    return tuple(next(grads) if t.requires_grad else None for t in inputs)
+
+
 # ----------------------------------------------------------------------------------
 # Mamba2 SSD: sequential recurrence over time.
 # ----------------------------------------------------------------------------------
@@ -66,16 +84,30 @@ def ssd(x, dt, A_log, Bm, Cm, D, *, init_state=None, return_state=False):
     Cm: (B,S,N)     output matrix (single group)
     D:  (H,)        skip
     state: (B,H,P,N) fp32; y in x's dtype.
-    """
+
+    ``ssd_step``'s arithmetic, with only the recurrence itself,
+    state_t = state_{t-1} * exp(dt_t A) + dt_t B_t x_t, left in the loop over
+    time: the decays, the inputs and the read-out C_t . state_t run once over
+    the whole sequence.  This is also the backward of the ``ssd`` kernel
+    (recomputed under autograd), where two operations a step keep the
+    graph, and the host's launches, short."""
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     state = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
              if init_state is None else init_state.float())
-    ys = []
+    if S == 0:
+        y = x.new_zeros(x.shape)
+        return (y, state) if return_state else y
+    A = -torch.exp(A_log.float())
+    xf, dtf = x.float(), dt.float()
+    decay = torch.exp(dtf * A)[..., None, None].unbind(1)                 # S x (B,H,1,1)
+    dbx = torch.einsum("bsh,bsn,bshp->bshpn", dtf, Bm.float(), xf).unbind(1)
+    states = []
     for t in range(S):
-        y_t, state = ssd_step(x[:, t], dt[:, t], A_log, Bm[:, t], Cm[:, t], D, state)
-        ys.append(y_t)
-    y = torch.stack(ys, dim=1) if ys else x.new_zeros(x.shape)
+        state = state * decay[t] + dbx[t]
+        states.append(state)
+    y = torch.einsum("bshpn,bsn->bshp", torch.stack(states, dim=1), Cm.float())
+    y = (y + xf * D.float()[None, None, :, None]).to(x.dtype)
     return (y, state) if return_state else y
 
 
@@ -90,15 +122,26 @@ def wkv6(r, k, v, w, u, *, init_state=None, return_state=False):
     r,k,v: (B,S,H,D)    w: (B,S,H,D) per-step decay in (0,1)    u: (H,D) bonus.
     state: (B,H,D,D)  maps k-dim -> v-dim.
     y_t = r_t . (state + u*k_t v_t^T);  state' = diag(w_t) state + k_t v_t^T
-    """
+
+    ``wkv6_step``'s arithmetic, with only the state update left in the loop
+    over time (the outer products k_t v_t^T and the read-outs run once over
+    the whole sequence); also the backward of the ``wkv6`` kernel, as
+    ``ssd``'s."""
     B, S, H, D = r.shape
     state = (torch.zeros((B, H, D, D), dtype=torch.float32, device=r.device)
              if init_state is None else init_state.float())
-    ys = []
+    if S == 0:
+        y = r.new_zeros(r.shape)
+        return (y, state) if return_state else y
+    rf, kf, vf, wf = (z.float() for z in (r, k, v, w))
+    kv = torch.einsum("bshk,bshv->bshkv", kf, vf)
+    kvs, ws = kv.unbind(1), wf[..., None].unbind(1)
+    before = []                                       # the state each token reads
     for t in range(S):
-        y_t, state = wkv6_step(r[:, t], k[:, t], v[:, t], w[:, t], u, state)
-        ys.append(y_t)
-    y = torch.stack(ys, dim=1) if ys else r.new_zeros(r.shape)
+        before.append(state)
+        state = state * ws[t] + kvs[t]
+    read = torch.stack(before, dim=1) + u.float()[None, None, :, :, None] * kv
+    y = torch.einsum("bshk,bshkv->bshv", rf, read).to(r.dtype)
     return (y, state) if return_state else y
 
 

@@ -6,9 +6,9 @@ the tensor-core chunked scan (64 columns of P per CTA, N up to 128), float32
 the CUDA-core one (exact fp32 sums).  The source's header
 says how the Hopper design differs from the TPU one.  For tensors on the
 CPU the wrapper takes the plain version (``ref.ssd``, the sequential
-recurrence); for CUDA tensors it launches the kernel or raises.  There is no backward: the reference has
-no backward kernel for this scan, and training the SSM families is later
-work, so a CUDA input that requires a gradient raises.
+recurrence), which autograd differentiates directly; for CUDA tensors it
+launches the kernel or raises, and under autograd the kernel's output gets
+the plain version's gradient (``_SSD``).
 """
 from __future__ import annotations
 
@@ -70,7 +70,6 @@ def ssd(x, dt, A_log, Bm, Cm, D, *, init_state=None, return_state=False):
     """Contract of ``ref.ssd``: x (B,S,H,P), dt (B,S,H), A_log (H,), Bm/Cm
     (B,S,N), D (H,), init_state (B,H,P,N) fp32 or None -> y (B,S,H,P) in
     x's dtype, and the fp32 final state if ``return_state``."""
-    global launches
     tensors = [t for t in (x, dt, A_log, Bm, Cm, D, init_state) if t is not None]
     devices = {t.device for t in tensors}
     if len(devices) != 1:
@@ -80,10 +79,41 @@ def ssd(x, dt, A_log, Bm, Cm, D, *, init_state=None, return_state=False):
                        return_state=return_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd: no kernel for device {x.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError("ssd: the CUDA kernel has no backward; training the SSM "
-                           "families is not ported yet")
     _check(x, dt, A_log, Bm, Cm, D, init_state)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        if init_state is not None and init_state.requires_grad:
+            raise RuntimeError("ssd: under autograd the initial state takes no gradient "
+                               "(training passes none); detach it")
+        return _SSD.apply(x, dt, A_log, Bm, Cm, D, init_state, return_state)
+    return _launch(x, dt, A_log, Bm, Cm, D, init_state, return_state)
+
+
+class _SSD(torch.autograd.Function):
+    """Forward: the CUDA kernel.  Backward: the gradient of the plain version
+    (``ref.ssd``, the sequential recurrence), recomputed from the caller's
+    saved inputs (before the kernel's padding and aligned copies) and
+    differentiated for the incoming gradient; each input's gradient comes
+    back in its own dtype.  The reference package has no backward kernel
+    either: its training path differentiates the XLA forms of the scan.  A
+    hand-written backward kernel is later speed work."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A_log, Bm, Cm, D, init_state, return_state):
+        ctx.save_for_backward(x, dt, A_log, Bm, Cm, D, init_state)
+        ctx.return_state = return_state
+        ctx.set_materialize_grads(False)
+        return _launch(x, dt, A_log, Bm, Cm, D, init_state, return_state)
+
+    @staticmethod
+    def backward(ctx, *grad_outs):
+        *saved, init_state = ctx.saved_tensors
+        grads = ref.recompute_grads(ref.ssd, saved, ctx.needs_input_grad[:6], grad_outs,
+                                    init_state=init_state, return_state=ctx.return_state)
+        return (*grads, None, None)
+
+
+def _launch(x, dt, A_log, Bm, Cm, D, init_state, return_state):
+    global launches
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     A_log = A_log.to(torch.float32).contiguous()

@@ -8,8 +8,9 @@ or D if less); float32 runs the recurrence token by token on the CUDA
 cores.  Neither takes the TPU kernel's exp(-cumulative decay) factor, which
 overflows at rwkv6's own decay initialisation (the source's header says
 more).  For tensors on the CPU the wrapper takes the plain version
-(``ref.wkv6``); for CUDA tensors it launches the kernel or raises.  There
-is no backward: a CUDA input that requires a gradient raises.
+(``ref.wkv6``), which autograd differentiates directly; for CUDA tensors it
+launches the kernel or raises, and under autograd the kernel's output gets
+the plain version's gradient (``_WKV6``).
 """
 from __future__ import annotations
 
@@ -67,7 +68,6 @@ def wkv6(r, k, v, w, u, *, init_state=None, return_state=False):
     """Contract of ``ref.wkv6``: r/k/v/w (B,S,H,D), u (H,D), init_state
     (B,H,D,D) fp32 or None -> y (B,S,H,D) in r's dtype, and the fp32 final
     state if ``return_state``."""
-    global launches
     tensors = [t for t in (r, k, v, w, u, init_state) if t is not None]
     devices = {t.device for t in tensors}
     if len(devices) != 1:
@@ -76,10 +76,41 @@ def wkv6(r, k, v, w, u, *, init_state=None, return_state=False):
         return ref.wkv6(r, k, v, w, u, init_state=init_state, return_state=return_state)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6: no kernel for device {r.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError("wkv6: the CUDA kernel has no backward; training the SSM "
-                           "families is not ported yet")
     _check(r, k, v, w, u, init_state)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        if init_state is not None and init_state.requires_grad:
+            raise RuntimeError("wkv6: under autograd the initial state takes no gradient "
+                               "(training passes none); detach it")
+        return _WKV6.apply(r, k, v, w, u, init_state, return_state)
+    return _launch(r, k, v, w, u, init_state, return_state)
+
+
+class _WKV6(torch.autograd.Function):
+    """Forward: the CUDA kernel.  Backward: the gradient of the plain version
+    (``ref.wkv6``, the sequential recurrence), recomputed from the caller's
+    saved inputs (before the kernel's aligned copies) and differentiated for
+    the incoming gradient; each input's gradient comes back in its own
+    dtype.  The reference package has no backward kernel either: its
+    training path differentiates the XLA forms of the recurrence.  A
+    hand-written backward kernel is later speed work."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, init_state, return_state):
+        ctx.save_for_backward(r, k, v, w, u, init_state)
+        ctx.return_state = return_state
+        ctx.set_materialize_grads(False)
+        return _launch(r, k, v, w, u, init_state, return_state)
+
+    @staticmethod
+    def backward(ctx, *grad_outs):
+        *saved, init_state = ctx.saved_tensors
+        grads = ref.recompute_grads(ref.wkv6, saved, ctx.needs_input_grad[:5], grad_outs,
+                                    init_state=init_state, return_state=ctx.return_state)
+        return (*grads, None, None)
+
+
+def _launch(r, k, v, w, u, init_state, return_state):
+    global launches
     B, S, H, D = r.shape
     u = u.to(torch.float32).contiguous()
     if init_state is not None:

@@ -22,7 +22,7 @@ Behaviour:
 Runs on the GPU unless ``--device cpu`` is given; with no GPU and no
 ``--device cpu`` it fails.  Bit-identical resume on the card needs
 deterministic kernels: ``CUBLAS_WORKSPACE_CONFIG`` is set before torch is
-imported, ``torch.use_deterministic_algorithms(True)`` and TF32 off while
+imported, deterministic algorithms on (``_deterministic``) and TF32 off while
 ``main`` runs.  ``--metrics-out`` writes ``{"steps": [{step, loss, t, ms}],
 "saves": [per-save delta stats], "launches": {kernel: count},
 "restore_s": ..., "restore_stats": {tier, bytes_by_tier, promoted, ...},
@@ -54,6 +54,8 @@ from repro_torch.core.worker import CkptClient, InlineCoordinator  # noqa: E402
 from repro_torch.data.pipeline import PipelineState, SyntheticTokens  # noqa: E402
 from repro_torch.kernels import checksum as CK  # noqa: E402
 from repro_torch.kernels import flash_attention  # noqa: E402
+from repro_torch.kernels import ssd as SSD  # noqa: E402
+from repro_torch.kernels import wkv6 as WKV  # noqa: E402
 from repro_torch.launch.serve import resolve_device  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.sched.cache_registry import (ENV_PEER_ROOTS, REGISTRY_DIRNAME,  # noqa: E402
@@ -161,6 +163,21 @@ def build_argparser():
     return ap
 
 
+def _deterministic(mode: bool) -> None:
+    """``torch.use_deterministic_algorithms(mode)`` for eager code: the same
+    flag, without the public call's import of ``torch._inductor`` to set the
+    compiler's copy of it (nothing here is compiled).  That import pulls in
+    dynamo, FSDP and sympy: 5-8 s of every started or requeued job's
+    start-up on the H100 machine, before its restore begins."""
+    torch._C._set_deterministic_algorithms(mode)
+
+
+def _launch_counts() -> dict:
+    """Launches so far of each kernel a train run can make."""
+    return {"flash": flash_attention.launches, "ssd": SSD.launches, "wkv6": WKV.launches,
+            "chunk_fingerprints": CK.fingerprint_launches}
+
+
 def _synced(device: torch.device) -> float:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -184,13 +201,13 @@ def main(argv=None) -> int:
     trap.__enter__()
     numerics = (torch.are_deterministic_algorithms_enabled(),
                 torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.use_deterministic_algorithms(True)
+    _deterministic(True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
         return _run(args, device, trap)
     finally:
-        torch.use_deterministic_algorithms(numerics[0])
+        _deterministic(numerics[0])
         torch.backends.cuda.matmul.allow_tf32 = numerics[1]
         torch.backends.cudnn.allow_tf32 = numerics[2]
         trap.__exit__(None, None, None)
@@ -257,7 +274,7 @@ def _run(args, device: torch.device, trap: SignalTrap) -> int:
                                    consumed_s=prior.get("consumed_s", 0.0))
 
     pipe = SyntheticTokens(cfg, args.batch, args.seq, seed=args.seed)
-    launches0 = (flash_attention.launches, CK.fingerprint_launches)
+    launches0 = _launch_counts()
 
     crm = CRManager(ckpt, client=client, signal_trap=trap, walltime=walltime,
                     requeue_file=requeue_file,
@@ -311,8 +328,7 @@ def _run(args, device: torch.device, trap: SignalTrap) -> int:
     if args.metrics_out:
         Path(args.metrics_out).write_text(json.dumps({
             "steps": metrics_log, "saves": crm.saves,
-            "launches": {"flash": flash_attention.launches - launches0[0],
-                         "chunk_fingerprints": CK.fingerprint_launches - launches0[1]},
+            "launches": {k: n - launches0[k] for k, n in _launch_counts().items()},
             "restore_s": restore_s if meta is not None else None,
             "restore_stats": ckpt.last_restore_stats if meta is not None else None,
             "start_step": start_step, "device": str(device)}))

@@ -9,7 +9,9 @@ tensors.
 from __future__ import annotations
 
 import dataclasses
+import os
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -74,12 +76,19 @@ def leaf_seed(seed: int, path: str) -> int:
 def materialize(specs, seed: int, dtype=torch.float32, device="cpu"):
     """Spec tree -> tensor tree.  Each leaf draws from its own CPU generator
     (``leaf_seed``), so the values depend on neither the process nor the
-    device they end up on."""
+    device they end up on, nor on the order the leaves are drawn in: a pool
+    of threads draws them, largest first (a 4B-parameter model takes the
+    time of its largest leaf, not of the sum)."""
     def make(path, spec):
         gen = torch.Generator(device="cpu").manual_seed(leaf_seed(seed, path))
         return _init_leaf(gen, spec, dtype).to(device)
 
-    return tree_map_with_path(make, specs)
+    named = []
+    tree_map_with_path(lambda path, spec: named.append((path, spec)), specs)
+    named.sort(key=lambda ps: -int(np.prod(ps[1].shape)))
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        futures = {path: pool.submit(make, path, spec) for path, spec in named}
+        return tree_map_with_path(lambda path, _spec: futures[path].result(), specs)
 
 
 def abstract_params(specs, dtype=torch.float32):

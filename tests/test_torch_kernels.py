@@ -923,18 +923,50 @@ def test_scan_kernels_take_views_off_a_16_byte_boundary(hopper):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+# the scans under autograd at a small ragged shape (P and N padded to 8 for
+# the bf16 kernel) and at the train shapes of zamba2-1.2b and rwkv6-1.6b
+SCAN_GRAD_SHAPES = {"ssd": [(1, 37, 3, 12, 20), (8, 128, 64, 64, 64)],
+                    "wkv6": [(2, 37, 3, 32), (8, 128, 32, 64)]}
+
+
 @pytest.mark.gpu
-def test_scan_kernels_raise_under_autograd(hopper):
-    args, _ = _ssd_args(1, 8, 2, 8, 8, device="cuda")
-    x = args[0].clone().requires_grad_()
-    with pytest.raises(RuntimeError, match="no backward"):
-        SSD.ssd(x, *args[1:])
-    args, _ = _wkv_args(1, 8, 2, 16, device="cuda")
+@pytest.mark.parametrize("scan,shape", [(k, s) for k, v in SCAN_GRAD_SHAPES.items() for s in v])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scan_gradient_is_the_plain_gradient(hopper, scan, shape, dtype):
+    """A CUDA scan that needs a gradient: the kernel forward (one launch, none
+    in the backward) and, for a fixed upstream gradient, each input's
+    gradient bit for bit that of autograd through the plain version, in the
+    input's own dtype."""
+    mod, plain, make = ((SSD, ref.ssd, _ssd_args) if scan == "ssd"
+                        else (WKV, ref.wkv6, _wkv_args))
+    args, _ = make(*shape, TDT[dtype], "cuda")
+    leaves = [a.clone().requires_grad_() for a in args]
+    n = mod.launches
+    y = getattr(mod, scan)(*leaves)
+    assert mod.launches == n + 1 and y.grad_fn is not None
+    g = torch.Generator(device="cuda").manual_seed(1)
+    go = torch.randn(y.shape, generator=g, device="cuda").to(y.dtype)
+    got = torch.autograd.grad(y, leaves, go)
+    assert mod.launches == n + 1
+    plain_leaves = [a.clone().requires_grad_() for a in args]
+    want_y = plain(*plain_leaves)
+    want = torch.autograd.grad(want_y, plain_leaves, go)
+    assert _rel_err(y.detach(), want_y.detach().float()) <= SCAN_TOL[scan][dtype]
+    for a, b, t in zip(got, want, args):
+        assert a.dtype == t.dtype and torch.isfinite(a).all() and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_scans_refuse_a_gradient_for_the_initial_state(hopper):
+    args, st0 = _ssd_args(1, 8, 2, 8, 8, device="cuda")
+    with pytest.raises(RuntimeError, match="initial state takes no gradient"):
+        SSD.ssd(*args, init_state=st0.requires_grad_())
+    args, st0 = _wkv_args(1, 8, 2, 16, device="cuda")
+    with pytest.raises(RuntimeError, match="initial state takes no gradient"):
+        WKV.wkv6(*args, init_state=st0.requires_grad_())
     u = args[4].clone().requires_grad_()
-    with pytest.raises(RuntimeError, match="no backward"):
-        WKV.wkv6(*args[:4], u)
-    with torch.no_grad():                   # serving: no gradient wanted
-        WKV.wkv6(*args[:4], u)
+    with torch.no_grad():                   # serving: no gradient wanted, no Function
+        assert WKV.wkv6(*args[:4], u).grad_fn is None
 
 
 @pytest.mark.gpu

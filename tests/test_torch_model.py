@@ -112,6 +112,23 @@ def test_init_depends_only_on_seed_and_path():
     assert not torch.equal(tree["seg0/ffn/gate/w"], tree["seg0/ffn/up/w"])
 
 
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-1.6b", "llama3.2-1b"])
+def test_init_draws_each_leaf_from_its_own_generator(arch):
+    """The leaves are drawn on a pool of threads: each equals the serial draw
+    from its own generator, whatever order the pool ran them in."""
+    from repro_torch.models import layers as L
+    from repro_torch.utils.tree import tree_map_with_path
+
+    cfg = reduced(get_config(arch))
+    specs = M.param_specs(cfg)
+    got = dict(flatten_with_names(L.materialize(specs, 5, torch.float32, "cpu")))
+    want = {}
+    tree_map_with_path(lambda path, spec: want.setdefault(path, L._init_leaf(
+        torch.Generator().manual_seed(L.leaf_seed(5, path)), spec, torch.float32)), specs)
+    assert list(got) == list(want)
+    assert all(torch.equal(got[n], want[n]) for n in want)
+
+
 def test_params_from_numpy_refuses_a_foreign_tree():
     cfg = reduced(get_config("qwen2-0.5b"))
     with pytest.raises(ValueError, match="does not match"):

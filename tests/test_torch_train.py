@@ -217,6 +217,39 @@ def test_train_needs_a_card_unless_told_cpu(tmp_path, monkeypatch):
                 "--ckpt-device-fp"])                  # device fp needs --ckpt-delta
 
 
+def test_trainer_is_deterministic_without_importing_the_compiler(tmp_path):
+    """The trainer's steps run with torch's deterministic flag on, and the
+    caller's setting is back after ``main``; the flag is set without
+    importing ``torch._inductor`` (seconds of every job's start-up).  In a
+    fresh interpreter, since another test may have imported it already."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    script = f"""
+import sys, torch
+from repro_torch.launch import train as T
+from repro_torch.train import step as TS
+seen, make = [], TS.make_train_step
+def counted(*a, **k):
+    step = make(*a, **k)
+    def run(*x):
+        seen.append(torch.are_deterministic_algorithms_enabled())
+        return step(*x)
+    return run
+TS.make_train_step = counted
+code = T.main(["--arch", "{ARCH}", "--reduced", "--device", "cpu", "--steps", "2",
+               "--batch", "2", "--seq", "8", "--ckpt-dir", {str(tmp_path)!r}])
+print(code, seen, torch.are_deterministic_algorithms_enabled(), "torch._inductor" in sys.modules)
+"""
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         timeout=300, env={**os.environ, "PYTHONPATH": src})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "0 [True, True] False False"
+
+
 # ---------------------------------------------------------------------------
 # 4. a checkpoint written by the reference's trainer state continues here
 # ---------------------------------------------------------------------------
