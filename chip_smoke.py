@@ -22,21 +22,32 @@ Phases, in order; any failure exits non-zero:
    reference package has no backward kernel either), the backwards' own
    time per call, and at every main-path shape of each kernel: its device
    time and the library call's (torch.profiler's kernel time per call,
-   median/min/max of 5), its call time (back-to-back calls between CUDA
-   events, bounded by the host), the plain version's time (events) and the
-   bound;
-3. serve: ``repro_torch.launch.serve`` at full width and depth with a
-   snapshot, migration and restore half way, for qwen2-0.5b, zamba2-1.2b,
-   rwkv6-1.6b and qwen3-4b in turn; each continuation must match the
-   unmigrated run bit for bit, the snapshot must be the cache's bytes
-   (EXPECTED_SNAPSHOT_BYTES), and the launch counts must show that every
-   attention and SSM scan call went through the kernels;
-4. reference: reduced qwen2-0.5b, zamba2-1.2b, rwkv6-1.6b, qwen3-4b and
-   granite-8b in float32, the card's path (kernels) against the CPU path
+   median/min/max of 5, with the library's kernels named), its call time
+   (back-to-back calls between CUDA events, bounded by the host), the plain
+   version's time (events) and the bound; among them MLA's: ``flash`` at
+   (Dq, Dv) = (192, 128) with 128 heads, ``flash_decode`` at the absorbed
+   shape (one kv head for 128 query heads, Dq 576, Dv 512, V a strided view
+   of K's rows, the caller's scale), and both at reduced MLA's (48, 32);
+3. serve: ``repro_torch.launch.serve`` with a snapshot, migration and
+   restore half way, at full width and depth for qwen2-0.5b, zamba2-1.2b,
+   rwkv6-1.6b, qwen3-4b and granite-moe-3b-a800m (MoE, 40 experts top-8),
+   and at full width and 2 of 61 layers for deepseek-v3-671b (MLA, one
+   dense and one MoE layer of 256 experts + 1 shared; ``SERVE_DEPTH``); each
+   continuation must match the unmigrated run bit for bit, the snapshot must
+   be the cache's bytes (EXPECTED_SNAPSHOT_BYTES), and the launch counts
+   must show that every attention and SSM scan call went through the
+   kernels.  Each model is drawn once (``served_model``) and profiled
+   (phase 5) on the same parameters right after it serves;
+4. reference: reduced qwen2-0.5b, zamba2-1.2b, rwkv6-1.6b, qwen3-4b,
+   granite-8b, granite-moe-3b-a800m, deepseek-v3-671b, musicgen-large (4
+   codebooks) and llava-next-mistral-7b (image embeddings over the first
+   positions) in float32, the card's path (kernels) against the CPU path
    (plain versions): equal greedy tokens, close logits; and one train step
    (loss and every gradient) of reduced zamba2 and rwkv6;
 5. profile: device time by kernel and the device's busy share over one
-   prefill and over decode steps at the serve phases' shapes, per arch;
+   prefill and over decode steps at the serve phases' shapes, per arch; for
+   the MoE models also the device time of routing, slot assignment,
+   dispatch, the experts' products and combine, apart;
 6. train state: the full-width qwen2-0.5b train state (params, AdamW m and v:
    5.93 GB) after one step, fingerprinted whole on the card and held against
    the plain version and the host's fingerprints, with the tree call timed;
@@ -124,8 +135,17 @@ EXPECTED_LAUNCHES = {
     "rwkv6-1.6b": {"flash": 0, "flash_decode": 0, "ssd": 0, "wkv6": 48},
     # 36 attention layers, head dim 128, 32 query / 8 KV heads
     "qwen3-4b": {"flash": 72, "flash_decode": 2304, "ssd": 0, "wkv6": 0},
+    # 32 attention + MoE layers, 24 query / 8 KV heads of 64
+    "granite-moe-3b-a800m": {"flash": 64, "flash_decode": 2048, "ssd": 0, "wkv6": 0},
+    # 2 MLA layers (SERVE_DEPTH): flash at (192, 128), flash_decode absorbed
+    "deepseek-v3-671b": {"flash": 4, "flash_decode": 128, "ssd": 0, "wkv6": 0},
 }
 SERVE_ARCHS = tuple(EXPECTED_LAUNCHES)
+# depth cuts of the served configs: deepseek-v3's 61 layers (671B parameters)
+# do not fit one card; 2 keep one layer of each kind at full width, the cut
+# ``reduced()`` makes to ``first_dense_layers`` (14,630,385,664 parameters,
+# 29.26 GB in its own bfloat16, with the unused MTP block)
+SERVE_DEPTH = {"deepseek-v3-671b": 2}     # serve's --num-layers
 # bytes of one serve snapshot at the serve argv (batch 4, cache 1024): the
 # cache, ``t`` (4 bytes) and the last tokens (4 x 4 bytes)
 EXPECTED_SNAPSHOT_BYTES = {
@@ -138,6 +158,10 @@ EXPECTED_SNAPSHOT_BYTES = {
     "rwkv6-1.6b": 51_118_100,
     # 36 layers x K,V x 4 x 1024 x 8 KV heads x 128 x bfloat16
     "qwen3-4b": 603_979_796,
+    # 32 layers x K,V x 4 x 1024 x 8 KV heads x 64 x bfloat16
+    "granite-moe-3b-a800m": 268_435_476,
+    # 2 layers x 4 x 1024 x the 576-wide latent (512 + rope 64) x bfloat16
+    "deepseek-v3-671b": 9_437_204,
 }
 # bfloat16: relative to the largest |plain| value of each output; the kernel
 # rounds y to bfloat16, at most 2^-8 of |y|
@@ -282,7 +306,9 @@ def device_ms(fn, inputs, iters: int = 20, repeats: int = 5) -> dict:
         per_call = [sum(e.time_range.elapsed_us() for e in r) / 1e3 / iters for r in runs]
         if (len(runs) == repeats and len(counts) == 1 and counts.pop() % iters == 0
                 and min(per_call) > 0):
-            return spread(per_call)
+            # the kernels of a run, by name (the library's choice of backend)
+            names = sorted({e.name[:80] for e in runs[-1]})
+            return {**spread(per_call), "kernels": names}
         log(f"    (profiler window {attempt + 1}: {len(marks)} markers, run event counts "
             f"{[len(r) for r in runs]}; taken again)")
     raise AssertionError("the profiler did not see every timed launch in three windows")
@@ -333,16 +359,36 @@ def _randn(shape, dtype, gen):
 
 
 # main-path shapes of the attention kernels, with the run whose launches
-# they carry: (label, B, S, H, Hkv, D, launch source)
-FLASH_SHAPES = [("qwen2-0.5b prefill", 4, 512, 14, 2, 64, "qwen2-0.5b"),
-                ("zamba2-1.2b shared block", 4, 512, 32, 32, 64, "zamba2-1.2b"),
-                ("qwen2-0.5b train forward", 8, 128, 14, 2, 64, "train"),
-                ("zamba2-1.2b train forward", 8, 128, 32, 32, 64, "train-zamba2"),
-                ("qwen3-4b prefill", 4, 512, 32, 8, 128, "qwen3-4b")]
-DECODE_SHAPES = [("qwen2-0.5b decode", 4, 1024, 14, 2, 64, "qwen2-0.5b"),
-                 ("zamba2-1.2b decode", 4, 1024, 32, 32, 64, "zamba2-1.2b"),
-                 ("qwen3-4b decode", 4, 1024, 32, 8, 128, "qwen3-4b")]
+# they carry: (label, B, S, H, Hkv, Dq, Dv, launch source)
+FLASH_SHAPES = [("qwen2-0.5b prefill", 4, 512, 14, 2, 64, 64, "qwen2-0.5b"),
+                ("zamba2-1.2b shared block", 4, 512, 32, 32, 64, 64, "zamba2-1.2b"),
+                ("qwen2-0.5b train forward", 8, 128, 14, 2, 64, 64, "train"),
+                ("zamba2-1.2b train forward", 8, 128, 32, 32, 64, 64, "train-zamba2"),
+                ("qwen3-4b prefill", 4, 512, 32, 8, 128, 128, "qwen3-4b"),
+                ("granite-moe-3b-a800m prefill", 4, 512, 24, 8, 64, 64,
+                 "granite-moe-3b-a800m"),
+                ("deepseek-v3-671b MLA prefill", 4, 512, 128, 128, 192, 128,
+                 "deepseek-v3-671b"),
+                ("reduced deepseek-v3 MLA prefill (phase 4)", 2, 24, 4, 4, 48, 32,
+                 "reduced deepseek-v3-671b")]
 DECODE_KV_LEN = 544      # the serve phases' last position: prompt 512 + 32
+# (label, B, S, H, Hkv, Dq, Dv, kv_len, launch source, MLA config); a row with
+# an MLA config is MLA's absorbed decode: one kv head, V the first Dv columns
+# of K's rows (a view), the scale ``models.attention.mla_scale`` of that config
+# (1/sqrt(qk_head_dim) in float32, as the model passes it); the other rows
+# take the kernel's default 1/sqrt(Dq), as a GQA model does
+DECODE_SHAPES = [("qwen2-0.5b decode", 4, 1024, 14, 2, 64, 64, DECODE_KV_LEN, "qwen2-0.5b",
+                  None),
+                 ("zamba2-1.2b decode", 4, 1024, 32, 32, 64, 64, DECODE_KV_LEN,
+                  "zamba2-1.2b", None),
+                 ("qwen3-4b decode", 4, 1024, 32, 8, 128, 128, DECODE_KV_LEN, "qwen3-4b",
+                  None),
+                 ("granite-moe-3b-a800m decode", 4, 1024, 24, 8, 64, 64, DECODE_KV_LEN,
+                  "granite-moe-3b-a800m", None),
+                 ("deepseek-v3-671b MLA absorbed decode", 4, 1024, 128, 1, 576, 512,
+                  DECODE_KV_LEN, "deepseek-v3-671b", "deepseek-v3-671b"),
+                 ("reduced deepseek-v3 MLA absorbed decode (phase 4)", 2, 64, 4, 1, 48, 32,
+                  32, "reduced deepseek-v3-671b", "reduced deepseek-v3-671b")]
 
 
 def phase_kernels() -> dict:
@@ -351,8 +397,13 @@ def phase_kernels() -> dict:
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.configs.base import get_config, reduced
     from repro_torch.kernels import decode_attention, flash_attention, ref
+    from repro_torch.models.attention import mla_scale
 
+    deepseek = get_config("deepseek-v3-671b")
+    mla = {None: None, "deepseek-v3-671b": mla_scale(deepseek),
+           "reduced deepseek-v3-671b": mla_scale(reduced(deepseek))}
     gen = torch.Generator(device="cuda").manual_seed(0)
     dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}
     report = {}
@@ -369,6 +420,11 @@ def phase_kernels() -> dict:
         (1, 64, 4, 2, 192, 128, "bfloat16", True),     # MLA prefill head dims
         (2, 300, 14, 2, 64, 64, "float32", True),      # ragged, the CUDA-core kernel
         (1, 256, 8, 1, 128, 64, "float32", False),
+        (4, 512, 24, 8, 64, 64, "bfloat16", True),     # granite-moe's prefill, G = 3
+        (4, 512, 128, 128, 192, 128, "bfloat16", True),   # deepseek-v3's MLA prefill
+        (2, 24, 4, 4, 48, 32, "bfloat16", True),       # reduced MLA's prefill
+        (2, 24, 4, 4, 48, 32, "float32", True),        # ... as phase 4 runs it
+        (2, 70, 4, 4, 48, 32, "float32", True),
     ]
     worst = 0.0
     for B, S, H, Hkv, Dq, Dv, dtn, causal in flash_cases:
@@ -390,9 +446,9 @@ def phase_kernels() -> dict:
         worst = max(worst, err)
     shapes = []
     elt = 2
-    for label, B, S, H, Hkv, D, source in FLASH_SHAPES:
+    for label, B, S, H, Hkv, Dq, Dv, source in FLASH_SHAPES:
         sets = copies_past_l2([_randn(s, torch.bfloat16, gen) for s in
-                               ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D))])
+                               ((B, S, H, Dq), (B, S, Hkv, Dq), (B, S, Hkv, Dv))])
 
         def kern(q, k, v):
             return flash_attention.flash(q, k, v, causal=True)
@@ -402,12 +458,13 @@ def phase_kernels() -> dict:
         def lib(q, k, v):
             return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
 
-        nbytes = elt * (2 * B * S * H * D + 2 * B * S * Hkv * D)
-        flops = 2 * B * H * (S * (S + 1) // 2) * (D + D)
+        nbytes = elt * (B * S * H * (Dq + Dv) + B * S * Hkv * (Dq + Dv))
+        flops = 2 * B * H * (S * (S + 1) // 2) * (Dq + Dv)
         b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        dims = f"D{Dq}" if Dq == Dv else f"Dq{Dq} Dv{Dv}"
         shapes.append(dict(
             kernel="flash", label=label, source=source,
-            shape=f"B{B} S{S} H{H} Hkv{Hkv} D{D} bfloat16 causal",
+            shape=f"B{B} S{S} H{H} Hkv{Hkv} {dims} bfloat16 causal",
             ms=device_ms(kern, sets), call_ms=call_ms(kern, sets),
             library_ms=device_ms(lib, lib_sets),
             plain_ms=timed_ms(lambda q, k, v: ref.attention(q, k, v, causal=True), sets),
@@ -424,22 +481,35 @@ def phase_kernels() -> dict:
     for B, S, H, Hkv, D, dtn, _ in decode_cases[:2]:       # the split boundaries, and 0
         sp = decode_attention.split_size(S)
         decode_cases.append((B, S, H, Hkv, D, dtn, (0, sp - 1, sp, sp + 1, S)))
+    decode_cases = [(B, S, H, Hkv, D, D, dtn, kvls, None) for B, S, H, Hkv, D, dtn, kvls in
+                    decode_cases]
+    decode_cases += [  # B, S, H, Hkv, Dq, Dv, dtype, kv_lens, MLA config (absorbed)
+        (4, 1024, 24, 8, 64, 64, "bfloat16", (1, 65, 544, 1024), None),   # granite-moe, G = 3
+        (4, 1024, 128, 1, 576, 512, "bfloat16", (0, 1, 63, 64, 65, 544, 1024),
+         "deepseek-v3-671b"),
+        (2, 64, 4, 1, 48, 32, "bfloat16", (1, 25, 32, 64), "reduced deepseek-v3-671b"),
+        (2, 64, 4, 1, 48, 32, "float32", (1, 25, 32, 64), "reduced deepseek-v3-671b"),
+    ]
     worst = 0.0
-    for B, S, H, Hkv, D, dtn, kv_lens in decode_cases:
-        q = _randn((B, 1, H, D), dt[dtn], gen)
-        k = _randn((B, S, Hkv, D), dt[dtn], gen)
-        v = _randn((B, S, Hkv, D), dt[dtn], gen)
+    for B, S, H, Hkv, Dq, Dv, dtn, kv_lens, mla_cfg in decode_cases:
+        q = _randn((B, 1, H, Dq), dt[dtn], gen)
+        k = _randn((B, S, Hkv, Dq), dt[dtn], gen)
+        # MLA: V is the first Dv columns of K's rows, a strided view
+        v = k[..., :Dv] if mla_cfg else _randn((B, S, Hkv, Dv), dt[dtn], gen)
+        scale = mla[mla_cfg]
         for kv_len in kv_lens:
             kvl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
-            got = decode_attention.flash_decode(q, k, v, kv_len=kvl)
+            got = decode_attention.flash_decode(q, k, v, kv_len=kvl, scale=scale)
             want = ref.attention(q.float(), k.float(), v.float(), causal=False,
-                                 kv_len=kv_len)
-            again = decode_attention.flash_decode(q, k, v, kv_len=kvl)
+                                 kv_len=kv_len, scale=scale)
+            again = decode_attention.flash_decode(q, k, v, kv_len=kvl, scale=scale)
             torch.cuda.synchronize()
             err, excess, ok = attn_check("flash_decode", got, want, dtn)
             same = torch.equal(got, again)
             ok = ok and same
-            log(f"  flash_decode B{B} S{S} H{H} Hkv{Hkv} D{D} {dtn} kv_len={kv_len}: "
+            dims = (f"Dq{Dq} Dv{Dv} (v a view of k) scale {scale!r}" if mla_cfg
+                    else f"D{Dq}" if Dq == Dv else f"Dq{Dq} Dv{Dv}")
+            log(f"  flash_decode B{B} S{S} H{H} Hkv{Hkv} {dims} {dtn} kv_len={kv_len}: "
                 f"max_abs_err {err:.3g} (tol {TOL[dtn]})"
                 f"{_excess_note('flash_decode', excess, dtn)} repeatable={same} "
                 f"{'ok' if ok else 'FAIL'}")
@@ -448,37 +518,66 @@ def phase_kernels() -> dict:
                     f"flash_decode disagrees with its plain version: {err}, {excess}")
             worst = max(worst, err)
     shapes = []
-    kv_len = DECODE_KV_LEN
-    kvl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
-    for label, B, S, H, Hkv, D, source in DECODE_SHAPES:
-        sets = copies_past_l2([_randn(s, torch.bfloat16, gen) for s in
-                               ((B, 1, H, D), (B, S, Hkv, D), (B, S, Hkv, D))])
+    for label, B, S, H, Hkv, Dq, Dv, kv_len, source, mla_cfg in DECODE_SHAPES:
+        kvl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+        scale = mla[mla_cfg]
+        absorbed = mla_cfg is not None
+        shs = ((B, 1, H, Dq), (B, S, Hkv, Dq)) + (() if absorbed else ((B, S, Hkv, Dv),))
+        sets = copies_past_l2([_randn(s, torch.bfloat16, gen) for s in shs])
+        if absorbed:        # (q, k, v as the view of k's rows the model passes)
+            sets = [(q, k, k[..., :Dv]) for q, k in sets]
 
         def kern(q, k, v):
-            return decode_attention.flash_decode(q, k, v, kv_len=kvl)
+            return decode_attention.flash_decode(q, k, v, kv_len=kvl, scale=scale)
 
         lib_sets = [(q.transpose(1, 2), k[:, :kv_len].transpose(1, 2),
                      v[:, :kv_len].transpose(1, 2)) for q, k, v in sets]
 
         def lib(q, k, v):
-            return F.scaled_dot_product_attention(q, k, v, enable_gqa=True)
+            return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, scale=scale)
 
-        nbytes = elt * (2 * B * H * D + 2 * B * kv_len * Hkv * D) + 4
-        flops = 2 * B * H * kv_len * (D + D)
+        library = device_ms(lib, lib_sets)
+        if absorbed:
+            # one kv head: the same function is one SDPA call without GQA, the
+            # G query heads folded into the query length (q (B, 1, G, Dq) is
+            # already that layout); the faster of the two calls is the library's
+            fold_sets = [(q, k[:, :kv_len].transpose(1, 2), v[:, :kv_len].transpose(1, 2))
+                         for q, k, v in sets]
+
+            def lib_folded(q, k, v):
+                return F.scaled_dot_product_attention(q, k, v, scale=scale)
+
+            folded = lib_folded(*fold_sets[0]).float()
+            err = (folded - lib(*lib_sets[0]).transpose(1, 2).float()).abs().max().item()
+            if not err <= TOL["bfloat16"]:
+                raise AssertionError(f"the folded SDPA call is not the GQA call's function: {err}")
+            calls = {"gqa": library, "folded": device_ms(lib_folded, fold_sets)}
+            library = min(calls.values(), key=lambda st: st["median"])
+            for how, st in calls.items():
+                log(f"  flash_decode library, {label}, {how} call: device ms {fmt(st)} "
+                    f"({', '.join(k[:60] for k in st['kernels'][:3])})")
+
+        # each input read once up to kv_len, the output written once, kv_len
+        # itself; V counted apart only where it is not a view of K's rows
+        v_bytes = 0 if absorbed else B * kv_len * Hkv * Dv
+        nbytes = elt * (B * H * (Dq + Dv) + B * kv_len * Hkv * Dq + v_bytes) + 4
+        flops = 2 * B * H * kv_len * (Dq + Dv)
         b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        dims = f"Dq{Dq} Dv{Dv} (v a view of k)" if absorbed else f"D{Dq}"
         shapes.append(dict(
             kernel="flash_decode", label=label, source=source,
-            shape=f"B{B} S{S} H{H} Hkv{Hkv} D{D} bfloat16 kv_len={kv_len} "
-                  f"({decode_attention.num_splits(S)} splits)",
-            ms=device_ms(kern, sets), call_ms=call_ms(kern, sets),
-            library_ms=device_ms(lib, lib_sets),
+            shape=f"B{B} S{S} H{H} Hkv{Hkv} {dims} bfloat16 kv_len={kv_len} "
+                  f"({decode_attention.num_splits(S)} splits, "
+                  f"{decode_attention.heads_per_cta(Dq, Dv, H // Hkv, elt)} heads a CTA)",
+            ms=device_ms(kern, sets), call_ms=call_ms(kern, sets), library_ms=library,
             plain_ms=timed_ms(lambda q, k, v: ref.attention(q, k, v, causal=False,
-                                                            kv_len=kvl), sets),
+                                                            kv_len=kvl, scale=scale), sets),
             bound_ms=b_ms, bound_by=b_by))
     report["flash_decode"] = dict(max_abs_err=worst, shapes=shapes)
     for r in report["flash"]["shapes"] + shapes:
         log(f"  {r['kernel']} timing, {r['label']} ({r['shape']}): device ms {fmt(r['ms'])}"
-            f"  call_ms {fmt(r['call_ms'])}  library device ms {fmt(r['library_ms'])}"
+            f"  call_ms {fmt(r['call_ms'])}  library device ms {fmt(r['library_ms'])} "
+            f"({', '.join(k[:40] for k in r['library_ms']['kernels'][:3])})"
             f"  plain_ms {r['plain_ms']:.4f}  bound_ms {r['bound_ms']:.6f} ({r['bound_by']})")
 
     # ---- flash under autograd: kernel forward, plain backward (training) ----
@@ -503,7 +602,7 @@ def phase_kernels() -> dict:
     report["flash"]["backward_ms"] = {
         label: backward_ms(flash_attention.flash, [_randn(sh, torch.bfloat16, gen) for sh in (
             (B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D))], dict(causal=True))
-        for label, B, S, H, Hkv, D, source in FLASH_SHAPES if source.startswith("train")}
+        for label, B, S, H, Hkv, D, _, source in FLASH_SHAPES if source.startswith("train")}
     for label, t in report["flash"]["backward_ms"].items():
         log(f"  flash backward (plain recompute), {label}: {fmt(t)} ms per call (events)")
 
@@ -792,9 +891,34 @@ def _scan_gradients(name, gen) -> dict:
     return out
 
 
-def phase_serve(ckpt_dir: str, arch: str) -> dict:
-    """The port's serving path at full width and depth, once, with the launch
-    counts of every serving kernel set to 0 just before and read just after."""
+def served_model(arch: str):
+    """The model phase 3 serves, drawn from seed 0 on the card at full width,
+    its depth cut as SERVE_DEPTH says; with the seconds the draw took."""
+    import torch
+
+    from repro_torch.configs.base import cut_depth, get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    cfg = get_config(arch)
+    if arch in SERVE_DEPTH:
+        cfg = cut_depth(cfg, SERVE_DEPTH[arch])
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, 0, "cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = M.count_params_analytic(cfg)
+    log(f"  {arch}: {cfg.num_layers} layers ({[(s.kind, s.count) for s in M.layer_plan(cfg)]})"
+        f", {n} parameters in {cfg.param_dtype} "
+        f"({n * L.torch_dtype(cfg.param_dtype).itemsize} bytes), drawn on the host's pool "
+        f"and placed on the card in {secs:.1f}s")
+    return model, secs
+
+
+def phase_serve(ckpt_dir: str, arch: str, model) -> dict:
+    """The port's serving path at full width, once, with the launch counts of
+    every serving kernel set to 0 just before and read just after.  ``model``:
+    the parameters to serve (``served_model``), of the config the argv names."""
     import torch
 
     from repro_torch.kernels import decode_attention, flash_attention
@@ -804,12 +928,18 @@ def phase_serve(ckpt_dir: str, arch: str) -> dict:
 
     mods = {"flash": flash_attention, "flash_decode": decode_attention, "ssd": SSD,
             "wkv6": WKV}
-    args = serve.parse_args(["--arch", arch] + SERVE_ARGV + ["--ckpt-dir", ckpt_dir])
+    depth = ["--num-layers", str(SERVE_DEPTH[arch])] if arch in SERVE_DEPTH else []
+    argv = ["--arch", arch] + SERVE_ARGV + depth + ["--ckpt-dir", ckpt_dir]
+    log(f"  python -m repro_torch.launch.serve {' '.join(argv)}")
+    args = serve.parse_args(argv)
+    torch.cuda.reset_peak_memory_stats()
     for m in mods.values():
         m.launches = 0
-    rep = serve.run(args)
+    rep = serve.run(args, model)
     counts = {name: m.launches for name, m in mods.items()}
+    peak = torch.cuda.max_memory_allocated()
     torch.cuda.empty_cache()
+    log(f"  peak device memory {peak / 1e9:.2f} GB")
     log(f"  continuation {'MATCHES' if rep['match'] else 'DIVERGED FROM'} the "
         "unmigrated reference")
     log(f"  prefill_ms {rep['prefill_ms']:.3f} (second prefill {rep['prefill_warm_ms']:.3f})"
@@ -828,30 +958,69 @@ def phase_serve(ckpt_dir: str, arch: str) -> dict:
         raise AssertionError("non-finite logits")
     if counts != EXPECTED_LAUNCHES[arch]:
         raise AssertionError(f"launch counts {counts} != {EXPECTED_LAUNCHES[arch]}")
-    return {"counts": counts, **rep}
+    return {"counts": counts, "peak_bytes": peak, **rep}
 
 
-def phase_profile(arch: str, steps: int = 8) -> dict:
+MOE_STEPS = ("route", "assign_slots", "dispatch", "expert_ffn", "combine")
+
+
+@contextlib.contextmanager
+def moe_ranges():
+    """Each step of ``models/moe.py``'s FFN inside a ``torch.profiler``
+    range named ``moe.<step>``, while the context is open; the module's own
+    code carries no instrumentation."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import moe as MOE
+
+    orig = {name: getattr(MOE, name) for name in MOE_STEPS}
+
+    def ranged(name, fn):
+        def call(*a, **kw):
+            with record_function(f"moe.{name}"):
+                return fn(*a, **kw)
+        return call
+
+    for name, fn in orig.items():
+        setattr(MOE, name, ranged(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in orig.items():
+            setattr(MOE, name, fn)
+
+
+def _range_device_us(prof) -> dict:
+    """Device microseconds under each ``moe.<step>`` range: the kernels its
+    operations launched, children included."""
+    from torch.autograd import DeviceType
+
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("moe."):
+            out[e.name] = out.get(e.name, 0.0) + e.device_time_total
+    return out
+
+
+def phase_profile(arch: str, model, steps: int = 8) -> dict:
     """Where the device time of the serving path goes, at the main path's
     shapes, over one prefill and over ``steps`` decode steps.  Each window is
     run twice: untraced, for its host-clock wall time, then under
     ``torch.profiler`` for the time of every device kernel.  Device busy
     share = summed kernel time over the untraced wall time; the traced
-    window's extra wall time is the profiler's own cost."""
+    window's extra wall time is the profiler's own cost.  ``model``: phase
+    3's (``served_model``).  A MoE model's FFN steps are read apart
+    (``moe_ranges``)."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import synthetic_prompts
     from repro_torch.serve.engine import Engine
-    from repro_torch.models import model as M
 
-    cfg = get_config(arch)
-    model = M.init_params(cfg, 0, "cuda")
-    prompts = {"tokens": torch.as_tensor(
-        np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 512)),
-        dtype=torch.int32, device="cuda")}
+    cfg = model.cfg
+    prompts = synthetic_prompts(cfg, np.random.default_rng(0), 4, 512, torch.device("cuda"))
     eng = Engine(cfg, model, batch=4, max_seq=1024)
     eng.prefill(prompts)
     eng.generate(2)                                    # warm
@@ -870,9 +1039,13 @@ def phase_profile(arch: str, steps: int = 8) -> dict:
     for name, per in (("prefill", 1), ("decode", steps)):
         wall_s = timed(name)
         prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-        traced_s = timed(name, prof)
+        with moe_ranges() if cfg.num_experts else contextlib.nullcontext():
+            traced_s = timed(name, prof)
+        # device rows, less the ranges' own spans (``moe.*``, which would
+        # count their kernels twice and the gaps between them)
         rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                and not e.key.startswith("moe.")]
         busy_s = sum(r[1] for r in rows) / 1e6
         rows.sort(key=lambda r: -r[1])
         log(f"  {name}: wall {wall_s / per * 1e3:.3f} ms per call untraced "
@@ -883,27 +1056,46 @@ def phase_profile(arch: str, steps: int = 8) -> dict:
                 f"x{n // per:<4d} {key[:90]}")
         out[name] = {"wall_ms": wall_s / per * 1e3, "busy_ms": busy_s / per * 1e3,
                      "busy_share": busy_s / wall_s}
+        if cfg.num_experts:
+            moe_us = _range_device_us(prof)
+            shares = {k.removeprefix("moe."): v / 1e6 / busy_s for k, v in moe_us.items()}
+            moved = shares.get("dispatch", 0.0) + shares.get("combine", 0.0)
+            log(f"    MoE share of the device time: dispatch + combine {100 * moved:.1f}%, "
+                f"the experts' products (expert_ffn) {100 * shares.get('expert_ffn', 0):.1f}%"
+                "; " + ", ".join(f"{k} {100 * v:.1f}% ({moe_us['moe.' + k] / per / 1e3:.4f} ms)"
+                                 for k, v in shares.items()))
+            out[name]["moe_share"] = shares
     del eng, model
     torch.cuda.empty_cache()
     return out
 
 
 def phase_reference(arch: str, prompt_len: int, max_seq: int, steps: int = 8) -> dict:
-    """A reduced model in float32: the card's path against the CPU path."""
+    """A reduced model in float32: the card's path against the CPU path.
+    Codebook models take (B, S, K) tokens; an image-token model takes image
+    embeddings over its first positions in the prefill."""
     import numpy as np
     import torch
 
     from repro_torch.configs.base import get_config, reduced
+    from repro_torch.kernels import decode_attention, flash_attention
     from repro_torch.models import model as M
 
     cfg = reduced(get_config(arch))
-    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size,
-                                               (2, prompt_len)).astype(np.int32)
+    rng = np.random.default_rng(0)
+    shape = (2, prompt_len, cfg.num_codebooks) if cfg.num_codebooks else (2, prompt_len)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, shape).astype(np.int32)}
+    if cfg.num_image_tokens:
+        batch["image_embeds"] = rng.standard_normal(
+            (2, cfg.num_image_tokens, cfg.d_model)).astype(np.float32)
+    mods = {"flash": flash_attention, "flash_decode": decode_attention}
     out = {}
     for device in ("cpu", "cuda"):
+        for m in mods.values():
+            m.launches = 0
         lm = M.init_params(cfg, seed=0, device=device)
-        logits, cache = M.prefill(lm, cfg, {"tokens": torch.from_numpy(tokens).to(device)},
-                                  max_seq)
+        logits, cache = M.prefill(lm, cfg, {k: torch.from_numpy(v).to(device)
+                                            for k, v in batch.items()}, max_seq)
         toks, all_logits = [], [logits.cpu()]
         nxt = logits.argmax(-1).to(torch.int32)
         for _ in range(steps):
@@ -912,13 +1104,14 @@ def phase_reference(arch: str, prompt_len: int, max_seq: int, steps: int = 8) ->
             all_logits.append(logits.cpu())
             nxt = logits.argmax(-1).to(torch.int32)
         out[device] = (torch.stack(toks, 1), torch.stack(all_logits, 1))
+    counts = {k: m.launches for k, m in mods.items()}
     same = torch.equal(out["cpu"][0], out["cuda"][0])
     err = (out["cpu"][1] - out["cuda"][1]).abs().max().item()
     log(f"  reduced {arch} f32 prompt {prompt_len}, cuda vs cpu: tokens equal={same} "
-        f"max logit err {err:.3g}")
+        f"max logit err {err:.3g}; launches on the card {counts}")
     if not same or err > 1e-3 or not math.isfinite(err):
         raise AssertionError("the card's path disagrees with the CPU path")
-    return {"tokens_equal": same, "max_logit_err": err}
+    return {"tokens_equal": same, "max_logit_err": err, "counts": counts}
 
 
 # phase 4's train step: each gradient within 10x the scan's float32 tolerance
@@ -1710,11 +1903,19 @@ def main() -> int:
     phase_build()
     phase("phase 2 kernels against their plain versions")
     kern = phase_kernels()
-    serve_rep = {}
+    serve_rep, profile_rep = {}, {}
     for arch in SERVE_ARCHS:
-        phase(f"phase 3 serve {arch} at full width with snapshot/migrate/restore")
+        depth = SERVE_DEPTH.get(arch)
+        phase(f"phase 3 serve {arch} at full width"
+              + (f" and {depth} layers" if depth else "") + " with snapshot/migrate/restore")
+        model = served_model(arch)[0]
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            serve_rep[arch] = phase_serve(tmp, arch)
+            serve_rep[arch] = phase_serve(tmp, arch, model)
+        phase(f"phase 5 where the serving path's device time goes (torch.profiler), {arch}"
+              " on phase 3's parameters")
+        profile_rep[arch] = phase_profile(arch, model)
+        del model
+        torch.cuda.empty_cache()
     phase("phase 4 reduced models: card against CPU")
     phase_reference("qwen2-0.5b", 24, 64)
     # 70 tokens: two chunks of the SSD kernel, the second ragged
@@ -1722,11 +1923,12 @@ def main() -> int:
     phase_reference("rwkv6-1.6b", 70, 96)
     phase_reference("qwen3-4b", 24, 64)
     phase_reference("granite-8b", 24, 64)
+    phase_reference("granite-moe-3b-a800m", 24, 64)
+    reduced_mla = phase_reference("deepseek-v3-671b", 24, 64)
+    phase_reference("musicgen-large", 24, 64)
+    phase_reference("llava-next-mistral-7b", 24, 64)
     phase_reference_train("zamba2-1.2b")
     phase_reference_train("rwkv6-1.6b")
-    for arch in SERVE_ARCHS:
-        phase(f"phase 5 where the serving path's device time goes (torch.profiler), {arch}")
-        phase_profile(arch)
     work = _work_dir()
     try:
         phase("phase 6 the full-width train state: fingerprints, a profiled step, saves")
@@ -1751,7 +1953,7 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # launches over every main-path run of this script: the four serve runs,
+    # launches over every main-path run of this script: the six serve runs,
     # the train runs of phases 7 and 10, the in-process follower and the
     # scheduled job (the checksum kernel is on no main path)
     runs = {arch: r["counts"] for arch, r in serve_rep.items()}
@@ -1761,6 +1963,8 @@ def main() -> int:
     runs["train-zamba2"] = {k: full_rep["zamba2-1.2b"]["counts"].get(k, 0) + n
                             for k, n in ssm_rep["counts"].items()}
     runs["train-rwkv6"] = full_rep["rwkv6-1.6b"]["counts"]
+    # phase 4's reduced MLA model: the (48, 32) shapes' launches, on no main path
+    checks = {"reduced deepseek-v3-671b": reduced_mla["counts"]}
     gb = {"6": sum(sv.get("bytes_written") or 0 for sv in state_rep["saves"].values()),
           "7": train_rep["saved_bytes"], "8": fleet_rep["saved_bytes"],
           "9": sched_rep["saved_bytes"], "9 promoted": sched_rep["promoted_bytes"],
@@ -1781,7 +1985,8 @@ def main() -> int:
     for name, (src, replaces) in sources.items():
         r = kern[name]
         for sh in r["shapes"]:
-            per_shape.append({**sh, "launches": runs.get(sh["source"], {}).get(name, 0)})
+            per_shape.append({**sh, "launches": {**runs, **checks}.get(sh["source"], {})
+                              .get(name, 0)})
         first = r["shapes"][0]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": sum(c.get(name, 0) for c in runs.values()),

@@ -218,6 +218,17 @@ def get_config(arch: str) -> ModelConfig:
     return mod.CONFIG
 
 
+def cut_depth(cfg: ModelConfig, num_layers: int) -> ModelConfig:
+    """``cfg`` at its own width with its depth cut to ``num_layers``.  The
+    leading dense layers are cut too, so that at least one layer of the
+    repeating kind stays: deepseek-v3 at 2 layers is one ``mla_dense`` and one
+    ``mla_moe`` layer, the cut ``reduced`` makes to ``first_dense_layers``."""
+    if not 0 < num_layers <= cfg.num_layers:
+        raise ValueError(f"{cfg.name} has {cfg.num_layers} layers, not {num_layers}")
+    return cfg.replace(num_layers=num_layers,
+                       first_dense_layers=min(cfg.first_dense_layers, num_layers - 1))
+
+
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """A tiny same-family config for CPU smoke tests (shapes asserted, no NaNs)."""
     kw = dict(

@@ -18,18 +18,28 @@
 // the partial's store, the combine's re-read), which PERF.md breaks down.
 //
 // Design: split-KV over the whole card, then a combine in a fixed order.
-// * The grid is (num_splits, Hkv, B).  The CTA of split s reads positions
-//   [s*split, min((s+1)*split, kv_len)) of its (batch, kv head) for all G
-//   query heads of the group, so the cache is read once for all G heads,
-//   and writes a partial (m, l, acc[Dv]) per head to a workspace.  A CTA
-//   whose split starts at or past kv_len reads nothing.  The wrapper picks
-//   split and num_splits from the cache's shape alone (never kv_len, which
-//   stays on the device, and never the card's SM count, so a cache restored
-//   on another card decodes to the same bits).
+// * The grid is (num_splits, Hkv * G/GH, B).  The CTA of split s reads
+//   positions [s*split, min((s+1)*split, kv_len)) of its (batch, kv head)
+//   for GH query heads of the group, and writes a partial (m, l, acc[Dv])
+//   per head to a workspace.  GH is the whole group where its fp32 q and
+//   accumulators fit in shared memory (GQA: the cache is read once for all
+//   G heads); MLA's absorbed decode (one kv head for G = 128 heads, Dq 576,
+//   Dv 512) would need 557 KB for them, so there the wrapper tiles the
+//   group, GH = 16 heads a CTA, and each tile reads the cache itself.  A
+//   head's partial is the same whatever GH is: every sum it takes runs over
+//   that head alone.  A CTA whose split starts at or past kv_len reads
+//   nothing.  The wrapper picks split and num_splits from the cache's shape
+//   alone (never kv_len, which stays on the device, and never the card's SM
+//   count, so a cache restored on another card decodes to the same bits).
+// * V may be a strided view (MLA's V is the first 512 columns of the
+//   576-wide latent cache that is also K): the kernel takes V's batch,
+//   position and head strides, each a whole number of 16-byte units.
 // * Inside a CTA, tiles of DBK positions arrive by 16-byte cp.async copies
 //   in the cache's dtype, K and V as two groups, so V is still in flight
 //   while the scores are formed.  Products run on the CUDA cores in fp32
-//   (byte-bound: tensor cores would not help).  K rows are padded by 16
+//   (byte-bound at the GQA shapes: tensor cores would not help; MLA's
+//   absorbed shape, 16 heads by 576 a tile, is not, and takes eight warps a
+//   CTA where GQA takes four).  K rows are padded by 16
 //   bytes, which keeps the 16-byte reads of the score loop free of bank
 //   conflicts.  Each (head, position) score and each (head, dim) sum has
 //   one owner thread, and the softmax statistics take a warp butterfly, so
@@ -47,8 +57,12 @@
 namespace {
 
 constexpr int DBK = 64;         // cache positions per tile; a split is a multiple
-constexpr int THREADS = 128;    // four warps
-constexpr int WARPS = THREADS / 32;
+constexpr int THREADS = 128;    // four warps, at the GQA shapes
+// MLA's absorbed shape fills a streaming multiprocessor's shared memory with
+// one CTA: eight warps there, to keep more than one warp a scheduler in flight
+// (every score, statistic and sum keeps its one owner, so the bits are the
+// same at either count)
+constexpr int THREADS_WIDE = 256;
 // splits per (batch, kv head) at most: the combine's loops run this far (the
 // wrapper's MAX_SPLITS, kernels/decode_attention.py, which a test holds equal)
 constexpr int MAX_SPLITS = 32;
@@ -86,16 +100,18 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
   }
 }
 
-template <typename T, int DQ, int DV>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, int DQ, int DV, int NT>
+__global__ void __launch_bounds__(NT)
 flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const int* __restrict__ kv_len_ptr,
-                          float* __restrict__ part, int S, int H, int Hkv, int split,
+                          float* __restrict__ part, int S, int H, int Hkv, int GH,
+                          int64_t v_sb, int64_t v_ss, int64_t v_sh, int split,
                           float scale) {
   constexpr int VEC = 16 / sizeof(T);              // elements per 16-byte copy
   constexpr int KR = DQ + VEC, VR = DV + VEC;      // smem rows: 16 bytes of padding
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int G = H / Hkv;
+  const int G = GH;                                // heads of this CTA
+  const int Gall = H / Hkv, tiles = Gall / GH;     // heads of the group, tiles of it
   float* qs = reinterpret_cast<float*>(smem_raw);
   T* ks = reinterpret_cast<T*>(qs + G * DQ);
   T* vs = ks + DBK * KR;
@@ -106,32 +122,35 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* alphas = ls + G;
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int ns = gridDim.x, s = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int ns = gridDim.x, s = blockIdx.x, b = blockIdx.z;
+  const int hk = blockIdx.y / tiles, g0 = blockIdx.y % tiles * GH;   // first head of the tile
   const int kv_len = max(0, min(*kv_len_ptr, S));
   const int start = s * split, end = min(start + split, kv_len);
   if (start >= end) return;   // past kv_len: nothing to read, no partial
-  const int64_t qo_base = (int64_t)b * H + (int64_t)hk * G;   // first head of the group
-  const int64_t k_stride = (int64_t)Hkv * DQ, v_stride = (int64_t)Hkv * DV;
+  const int64_t qo_base = (int64_t)b * H + (int64_t)hk * Gall + g0;
+  const int64_t k_stride = (int64_t)Hkv * DQ, v_stride = v_ss;
   const T* kb = k + (int64_t)b * S * k_stride + (int64_t)hk * DQ;
-  const T* vb = v + (int64_t)b * S * v_stride + (int64_t)hk * DV;
-  // this (batch, kv head)'s partials: (m, l) of [split][head], then acc
-  float* part_ml = part + (size_t)(b * Hkv + hk) * ns * G * (DV + 2);
-  float* part_acc = part_ml + (size_t)ns * G * 2;
+  const T* vb = v + (int64_t)b * v_sb + (int64_t)hk * v_sh;
+  // this (batch, kv head)'s partials, (m, l) of [split][head] then acc of
+  // [split][head][DV], offset to the tile's first head
+  float* part_ml = part + (size_t)(b * Hkv + hk) * ns * Gall * (DV + 2);
+  float* part_acc = part_ml + (size_t)ns * Gall * 2 + (size_t)g0 * DV;
+  part_ml += (size_t)g0 * 2;
 
   // a fixed number of 16-byte copies per thread (compile-time trip counts)
-  static_assert((DBK * DQ / VEC) % THREADS == 0 && (DBK * DV / VEC) % THREADS == 0,
+  static_assert((DBK * DQ / VEC) % NT == 0 && (DBK * DV / VEC) % NT == 0,
                 "tiles split evenly over the threads");
   auto load_tile = [&](int k0) {
 #pragma unroll
-    for (int i = 0; i < DBK * (DQ / VEC) / THREADS; ++i) {
-      const int c = tid + i * THREADS, r = c / (DQ / VEC), ch = c % (DQ / VEC), kp = k0 + r;
+    for (int i = 0; i < DBK * (DQ / VEC) / NT; ++i) {
+      const int c = tid + i * NT, r = c / (DQ / VEC), ch = c % (DQ / VEC), kp = k0 + r;
       rt::cp_async16(ks + r * KR + ch * VEC, kb + (kp < end ? kp : 0) * k_stride + ch * VEC,
                      kp < end);
     }
     rt::cp_async_commit();
 #pragma unroll
-    for (int i = 0; i < DBK * (DV / VEC) / THREADS; ++i) {
-      const int c = tid + i * THREADS, r = c / (DV / VEC), ch = c % (DV / VEC), kp = k0 + r;
+    for (int i = 0; i < DBK * (DV / VEC) / NT; ++i) {
+      const int c = tid + i * NT, r = c / (DV / VEC), ch = c % (DV / VEC), kp = k0 + r;
       rt::cp_async16(vs + r * VR + ch * VEC, vb + (kp < end ? kp : 0) * v_stride + ch * VEC,
                      kp < end);
     }
@@ -139,9 +158,9 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   };
 
   load_tile(start);
-  for (int e = tid; e < G * DQ; e += THREADS) qs[e] = rt::to_f32(q[qo_base * DQ + e]);
-  for (int e = tid; e < G * DV; e += THREADS) accs[e] = 0.f;
-  for (int g = tid; g < G; g += THREADS) {
+  for (int e = tid; e < G * DQ; e += NT) qs[e] = rt::to_f32(q[qo_base * DQ + e]);
+  for (int e = tid; e < G * DV; e += NT) accs[e] = 0.f;
+  for (int g = tid; g < G; g += NT) {
     ms[g] = rt::NEG_INF;
     ls[g] = 0.f;
   }
@@ -154,7 +173,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
     // scores of the G heads against the DBK positions of this tile
-    for (int e = tid; e < G * DBK; e += THREADS) {
+    for (int e = tid; e < G * DBK; e += NT) {
       const int g = e / DBK, j = e % DBK;
       const float* qg = qs + g * DQ;
       const T* kj = ks + j * KR;
@@ -175,7 +194,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // online-softmax statistics: one warp per head, butterfly reductions
     // (every lane ends with the same bits)
-    for (int g = warp; g < G; g += WARPS) {
+    for (int g = warp; g < G; g += NT / 32) {
       float* pg = ps + g * DBK;
       float mx = ms[g];
       for (int j = lane; j < DBK; j += 32) mx = fmaxf(mx, pg[j]);
@@ -201,7 +220,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
     // acc = acc * alpha + p @ V, one owner thread per (head, pair of dims)
-    for (int e = tid; e < G * (DV / 2); e += THREADS) {
+    for (int e = tid; e < G * (DV / 2); e += NT) {
       const int g = e / (DV / 2), d = 2 * (e % (DV / 2));
       const float* pg = ps + g * DBK;
       float a0[4] = {0.f, 0.f, 0.f, 0.f}, a1[4] = {0.f, 0.f, 0.f, 0.f};   // chains by j % 4
@@ -217,10 +236,10 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   __syncthreads();
-  for (int e = tid; e < G * DV; e += THREADS) part_acc[(size_t)s * G * DV + e] = accs[e];
-  for (int g = tid; g < G; g += THREADS) {
-    part_ml[((size_t)s * G + g) * 2] = ms[g];
-    part_ml[((size_t)s * G + g) * 2 + 1] = ls[g];
+  for (int e = tid; e < G * DV; e += NT) part_acc[(size_t)s * Gall * DV + e] = accs[e];
+  for (int g = tid; g < G; g += NT) {
+    part_ml[((size_t)s * Gall + g) * 2] = ms[g];
+    part_ml[((size_t)s * Gall + g) * 2 + 1] = ls[g];
   }
 }
 
@@ -267,19 +286,22 @@ flash_decode_combine_kernel(const int* __restrict__ kv_len_ptr,
 
 template <typename T, int DQ, int DV>
 int launch(const void* q, const void* k, const void* v, const void* kv_len, void* o,
-           void* part, int B, int S, int H, int Hkv, int split, int num_splits,
-           float scale, cudaStream_t stream) {
+           void* part, int B, int S, int H, int Hkv, int GH, const long long* v_strides,
+           int split, int num_splits, float scale, cudaStream_t stream) {
   const int G = H / Hkv;
-  const size_t bytes = smem_bytes(DQ, DV, G, sizeof(T));
-  auto split_kernel = flash_decode_split_kernel<T, DQ, DV>;
+  if (GH <= 0 || G % GH != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = smem_bytes(DQ, DV, GH, sizeof(T));
+  constexpr int NT = DQ >= 512 ? THREADS_WIDE : THREADS;
+  auto split_kernel = flash_decode_split_kernel<T, DQ, DV, NT>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  split_kernel<<<dim3(num_splits, Hkv, B), THREADS, bytes, stream>>>(
+  split_kernel<<<dim3(num_splits, Hkv * (G / GH), B), NT, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(kv_len), static_cast<float*>(part), S, H, Hkv, split, scale);
+      static_cast<const int*>(kv_len), static_cast<float*>(part), S, H, Hkv, GH,
+      v_strides[0], v_strides[1], v_strides[2], split, scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_decode_combine_kernel<T, DV><<<dim3(H, B), DV, 0, stream>>>(
@@ -290,49 +312,58 @@ int launch(const void* q, const void* k, const void* v, const void* kv_len, void
 
 template <typename T>
 int dispatch(int Dq, int Dv, const void* q, const void* k, const void* v,
-             const void* kv_len, void* o, void* part, int B, int S, int H, int Hkv,
-             int split, int num_splits, float scale, cudaStream_t st) {
-#define RT_DIMS(DQ, DV)                                                                  \
-  if (Dq == DQ && Dv == DV)                                                              \
-    return launch<T, DQ, DV>(q, k, v, kv_len, o, part, B, S, H, Hkv, split, num_splits, \
-                             scale, st);
+             const void* kv_len, void* o, void* part, int B, int S, int H, int Hkv, int GH,
+             const long long* v_strides, int split, int num_splits, float scale,
+             cudaStream_t st) {
+#define RT_DIMS(DQ, DV)                                                                 \
+  if (Dq == DQ && Dv == DV)                                                             \
+    return launch<T, DQ, DV>(q, k, v, kv_len, o, part, B, S, H, Hkv, GH, v_strides,    \
+                             split, num_splits, scale, st);
   RT_DIMS(32, 32) RT_DIMS(32, 64) RT_DIMS(32, 128)
   RT_DIMS(64, 32) RT_DIMS(64, 64) RT_DIMS(64, 128)
   RT_DIMS(128, 32) RT_DIMS(128, 64) RT_DIMS(128, 128)
   RT_DIMS(192, 128)
+  RT_DIMS(48, 32)     // reduced MLA: absorbed decode (latent 32 + rope 16, v 32)
+  RT_DIMS(576, 512)   // MLA's absorbed decode: latent 512 + rope 64, v the latent
 #undef RT_DIMS
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// Dynamic shared memory the split kernel asks for at (Dq, Dv, G) with
-// elements of elt bytes; the wrapper refuses shapes above the card's 227 KB
-// per block.
+// Dynamic shared memory the split kernel asks for at (Dq, Dv) with G heads
+// a CTA and elements of elt bytes; the wrapper picks the largest G that
+// divides the group and fits the card's 227 KB per block, and refuses a
+// shape where none does.
 extern "C" long long decode_attention_smem_bytes(int Dq, int Dv, int G, int elt) {
   return static_cast<long long>(smem_bytes(Dq, Dv, G, elt));
 }
 
-// q (B,1,H,Dq), k (B,S,Hkv,Dq), v (B,S,Hkv,Dv), kv_len one device int32,
-// o (B,1,H,Dv), all contiguous and 16-byte aligned, q/k/v/o of one dtype
-// (is_bf16 ? bfloat16 : float32).  part: B*Hkv*num_splits*G*(Dv+2) floats of
-// workspace, not read before the split kernel writes it.  split: cache
-// positions per CTA, a multiple of 64, with num_splits * split >= S and
-// num_splits <= MAX_SPLITS.  Two launches on the stream: the split kernel, then
-// the combine.  Returns a cudaError_t as int; 0 means both were accepted.
+// q (B,1,H,Dq), k (B,S,Hkv,Dq), kv_len one device int32, o (B,1,H,Dv), all
+// contiguous and 16-byte aligned; v (B,S,Hkv,Dv) with its last dimension
+// contiguous and v_sb, v_ss, v_sh its batch, position and head strides in
+// elements, each a multiple of 16 bytes; q/k/v/o of one dtype (is_bf16 ?
+// bfloat16 : float32).  GH: query heads a CTA, a divisor of H/Hkv.  part:
+// B*Hkv*num_splits*(H/Hkv)*(Dv+2) floats of workspace, not read before the
+// split kernel writes it.  split: cache positions per CTA, a multiple of 64,
+// with num_splits * split >= S and num_splits <= MAX_SPLITS.  Two launches
+// on the stream: the split kernel, then the combine.  Returns a cudaError_t
+// as int; 0 means both were accepted.
 extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
                                     const void* kv_len, void* o, void* part, int B, int S,
-                                    int H, int Hkv, int Dq, int Dv, int is_bf16, int split,
-                                    int num_splits, float scale, void* stream) {
+                                    int H, int Hkv, int Dq, int Dv, int is_bf16, int GH,
+                                    long long v_sb, long long v_ss, long long v_sh,
+                                    int split, int num_splits, float scale, void* stream) {
   if (split <= 0 || split % DBK != 0 || num_splits <= 0 || num_splits > MAX_SPLITS ||
       (long long)split * num_splits < S)
     return static_cast<int>(cudaErrorInvalidValue);
+  const long long v_strides[3] = {v_sb, v_ss, v_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return dispatch<__nv_bfloat16>(Dq, Dv, q, k, v, kv_len, o, part, B, S, H, Hkv, split,
-                                   num_splits, scale, st);
-  return dispatch<float>(Dq, Dv, q, k, v, kv_len, o, part, B, S, H, Hkv, split, num_splits,
-                         scale, st);
+    return dispatch<__nv_bfloat16>(Dq, Dv, q, k, v, kv_len, o, part, B, S, H, Hkv, GH,
+                                   v_strides, split, num_splits, scale, st);
+  return dispatch<float>(Dq, Dv, q, k, v, kv_len, o, part, B, S, H, Hkv, GH, v_strides,
+                         split, num_splits, scale, st);
 }
 
 extern "C" const char* decode_attention_error_string(int err) {

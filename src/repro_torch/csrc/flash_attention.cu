@@ -419,6 +419,7 @@ int dispatch(int is_bf16, int Dq, int Dv, const void* q, const void* k, const vo
   RT_DIMS(64, 32) RT_DIMS(64, 64) RT_DIMS(64, 128)
   RT_DIMS(128, 32) RT_DIMS(128, 64) RT_DIMS(128, 128)
   RT_DIMS(192, 128)
+  RT_DIMS(48, 32)     // reduced MLA prefill: nope 32 + rope 16, v 32
 #undef RT_DIMS
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,7 +5,9 @@ kernel): one query token against a KV cache, masked at ``kv_len``.  The
 kernel reads ``kv_len`` from a device int32, so a decode loop never syncs
 the host.  For a tensor on the CPU the wrapper takes the plain version
 (``ref.attention``); for a CUDA tensor it launches the kernel or raises.
-MLA's absorbed decode shape (Hkv=1, Dq=576, Dv=512) is not supported yet.
+MLA's absorbed decode (Hkv 1, Dq 576, Dv 512, 128 query heads) runs with
+its head group tiled over CTAs (``heads_per_cta``) and its V a strided view
+of K's rows.
 
 The kernel splits the cache over ``num_splits`` CTAs per (batch, kv head),
 then a second launch on the same stream combines their partials in a fixed
@@ -17,12 +19,17 @@ The partials go to a workspace allocated for each call.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.flash_attention import DTYPES, SUPPORTED_DIMS
+from repro_torch.kernels.flash_attention import DTYPES, SUPPORTED_DIMS as FLASH_DIMS
+
+# head-dim pairs (Dq, Dv) the kernel is instantiated for: flash's, and MLA's
+# absorbed decode (latent + rope, latent)
+SUPPORTED_DIMS = FLASH_DIMS | {(576, 512)}
 
 MAX_SMEM_BYTES = 232448     # dynamic shared memory a block may use on Hopper
 SPLIT_TILE = 64             # cache positions per kernel tile; a split is a multiple
@@ -38,8 +45,9 @@ def _kernel():
     if _fn is None:
         lib = _build.load("decode_attention")
         fn = lib.decode_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
-            ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                       + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
+                       + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.decode_attention_error_string.argtypes = [ctypes.c_int]
         lib.decode_attention_error_string.restype = ctypes.c_char_p
@@ -61,6 +69,19 @@ def num_splits(S: int) -> int:
     At qwen2-0.5b's serving shape (S 1024) it is 16, a grid of 16 x Hkv x B
     CTAs."""
     return max(1, -(-S // split_size(S)))
+
+
+@functools.lru_cache(maxsize=None)
+def heads_per_cta(Dq: int, Dv: int, G: int, elt: int) -> int:
+    """Query heads a CTA of the split kernel takes: the largest divisor of the
+    group G whose fp32 q rows and accumulators fit in shared memory beside
+    the K/V tiles (G itself at every GQA shape; 16 of 128 at MLA's absorbed
+    shape in bfloat16), 0 where not even one head fits."""
+    smem_bytes = _kernel()[2]
+    for gh in range(G, 0, -1):
+        if G % gh == 0 and smem_bytes(Dq, Dv, gh, elt) <= MAX_SMEM_BYTES:
+            return gh
+    return 0
 
 
 def _kv_len_tensor(kv_len, S: int, device) -> torch.Tensor:
@@ -88,17 +109,21 @@ def _check(q, k, v):
         raise ValueError(f"flash_decode: {H} query heads are not a multiple of "
                          f"{Hkv} kv heads")
     if (Dq, Dv) not in SUPPORTED_DIMS:
-        raise ValueError(f"flash_decode: head dims (Dq={Dq}, Dv={Dv}) not supported "
-                         f"(MLA's absorbed shape comes with the MLA port); "
+        raise ValueError(f"flash_decode: head dims (Dq={Dq}, Dv={Dv}) not supported; "
                          f"supported: {sorted(SUPPORTED_DIMS)}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_decode: dtypes {q.dtype}/{k.dtype}/{v.dtype}; the kernel "
                         "takes float32 or bfloat16, one dtype for q, k and v")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_decode: q, k, v must be contiguous")
+    if not (q.is_contiguous() and k.is_contiguous()):
+        raise ValueError("flash_decode: q and k must be contiguous")
+    unit = 16 // v.element_size()          # elements in 16 bytes
+    if v.stride(3) != 1 or any(v.stride(i) % unit for i in range(3)):
+        raise ValueError(f"flash_decode: v (strides {tuple(v.stride())}) must have a "
+                         "contiguous last dimension and other strides of whole 16-byte units")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_decode: q, k, v must start on a 16-byte boundary")
-    if max(t.numel() for t in (q, k, v)) >= 2**62:
+    v_span = sum((n - 1) * st for n, st in zip(v.shape, v.stride())) + 1
+    if max(q.numel(), k.numel(), v_span) >= 2**62:
         raise ValueError("flash_decode: tensor too large")
 
 
@@ -107,7 +132,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B,1,H,Dq); k: (B,S,Hkv,Dq); v: (B,S,Hkv,Dv) -> (B,1,H,Dv).
 
     ``kv_len``: None (the whole cache), an int, or a 0-d int32 tensor on the
-    cache's device; positions >= kv_len are masked."""
+    cache's device; positions >= kv_len are masked.  q and k are
+    contiguous; v may be a strided view (MLA passes the first Dv columns of
+    k's rows) whose last dimension is contiguous."""
     global launches
     devices = {q.device, k.device, v.device}
     if len(devices) != 1:
@@ -125,16 +152,18 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((B, 1, H, Dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    fn, err_str, smem_bytes = _kernel()
+    fn, err_str, _ = _kernel()
     G = H // Hkv
-    if smem_bytes(Dq, Dv, G, q.element_size()) > MAX_SMEM_BYTES:
-        raise ValueError(f"flash_decode: group of {G} heads at Dq={Dq}, Dv={Dv} "
-                         "needs more shared memory than a block has")
+    gh = heads_per_cta(Dq, Dv, G, q.element_size())
+    if not gh:
+        raise ValueError(f"flash_decode: one head at Dq={Dq}, Dv={Dv} in {q.dtype} needs "
+                         "more shared memory than a block has")
     ns = num_splits(S)
     part = torch.empty(B * Hkv * ns * G * (Dv + 2), dtype=torch.float32, device=q.device)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kvl.data_ptr(), out.data_ptr(),
-             part.data_ptr(), B, S, H, Hkv, Dq, Dv, DTYPES[q.dtype], split_size(S), ns,
-             float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+             part.data_ptr(), B, S, H, Hkv, Dq, Dv, DTYPES[q.dtype], gh, v.stride(0),
+             v.stride(1), v.stride(2), split_size(S), ns, float(scale),
+             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_decode: kernel launch failed: {err_str(err).decode()}")
     launches += 1

@@ -18,7 +18,7 @@ from repro_torch.kernels import _build, ref
 
 # head-dim pairs (Dq, Dv) the kernel is instantiated for
 SUPPORTED_DIMS = frozenset([(dq, dv) for dq in (32, 64, 128) for dv in (32, 64, 128)]
-                           + [(192, 128)])
+                           + [(192, 128), (48, 32)])     # MLA prefill, full and reduced
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0      # kernel launches made by this wrapper

@@ -12,6 +12,8 @@ finishes, printing whether the continuation matched an unmigrated reference
 (it must, bit for bit).  Runs on the GPU unless ``--device cpu`` is given;
 with no GPU and no ``--device cpu`` it fails.  float32 matrix products run in
 full float32 (TF32 off), as on the CPU.
+``--num-layers N`` serves the arch at its width with its depth cut to N
+layers (deepseek-v3-671b at 2 layers fits one card).
 
 Fleet mode (``--follow``): the checkpoint prefix holds PARAMETER checkpoints
 pushed by a trainer (``CheckpointManager`` + ``registry.announce_push``).
@@ -38,7 +40,7 @@ import torch
 from repro_torch.checkpoint import serialization as SER
 from repro_torch.checkpoint.manager import CheckpointManager, CheckpointPolicy
 from repro_torch.checkpoint.store import TieredStore, node_local_tier_roots
-from repro_torch.configs.base import ModelConfig, get_config, reduced as reduce_cfg
+from repro_torch.configs.base import ModelConfig, cut_depth, get_config, reduced as reduce_cfg
 from repro_torch.kernels import decode_attention, flash_attention
 from repro_torch.models import model as M
 from repro_torch.sched.cache_registry import REGISTRY_DIRNAME, CacheRegistry
@@ -59,6 +61,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--num-layers", type=int, default=None,
+                    help="serve the arch at its width with its depth cut to N layers "
+                         "(configs.base.cut_depth)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=12)
     ap.add_argument("--gen", type=int, default=24)
@@ -111,10 +116,23 @@ def _full_fp32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def served_config(args: argparse.Namespace) -> ModelConfig:
+    """The config that ``--arch``, ``--reduced`` and ``--num-layers`` name."""
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduce_cfg(cfg)
+    if args.num_layers:
+        cfg = cut_depth(cfg, args.num_layers)
+    return cfg
+
+
 def synthetic_prompts(cfg: ModelConfig, rng: np.random.Generator, batch: int,
                       prompt_len: int, device: torch.device) -> dict:
-    """A batch of random prompts, as the engine takes them."""
-    return {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, prompt_len)),
+    """A batch of random prompts, as the engine takes them: (B,S) tokens, or
+    (B,S,K) with K codebooks."""
+    shape = ((batch, prompt_len, cfg.num_codebooks) if cfg.num_codebooks
+             else (batch, prompt_len))
+    return {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, shape),
                                       dtype=torch.int32, device=device)}
 
 
@@ -158,9 +176,7 @@ def open_follower(args: argparse.Namespace) -> Optional[Follower]:
     device, so no second model is built on the card."""
     device = resolve_device(args.device)
     _full_fp32()
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = reduce_cfg(cfg)
+    cfg = served_config(args)
     tier_roots = (node_local_tier_roots(Path(args.local_root))
                   if args.local_root else None)
     store = TieredStore(Path(args.ckpt_dir), tier_roots=tier_roots)
@@ -245,17 +261,22 @@ def follow(args: argparse.Namespace) -> int:
     return 0
 
 
-def run(args: argparse.Namespace) -> dict:
+def run(args: argparse.Namespace, model: Optional[M.LM] = None) -> dict:
     """Serve once as ``args`` say.  Returns the tokens, whether the migrated
-    continuation matched (None without --snapshot-at) and the timings."""
+    continuation matched (None without --snapshot-at) and the timings.
+    ``model``: parameters already on the device, of exactly the config that
+    the argv names, for a caller that serves and then profiles one large
+    model and draws it once; by default they are drawn from ``--seed``."""
     if args.snapshot_at and not 0 < args.snapshot_at < args.gen:
         raise ValueError("--snapshot-at must lie strictly inside --gen")
     device = resolve_device(args.device)
     _full_fp32()
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = reduce_cfg(cfg)
-    model = M.init_params(cfg, args.seed, device)
+    cfg = served_config(args)
+    if model is None:
+        model = M.init_params(cfg, args.seed, device)
+    elif model.cfg != cfg:
+        raise ValueError(f"the model given is not the config that --arch, --reduced and "
+                         f"--num-layers name ({cfg.name}, {cfg.num_layers} layers)")
     rng = np.random.default_rng(args.seed)
     prompts = synthetic_prompts(cfg, rng, args.batch, args.prompt_len, device)
 

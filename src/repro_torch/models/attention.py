@@ -1,18 +1,22 @@
-"""GQA/MHA attention mixer (+qkv-bias, qk_norm).
+"""Attention mixers: GQA/MHA (+qkv-bias, qk_norm) and DeepSeek MLA.
 
-Two execution paths:
-  * ``gqa_full``   — prefill over a full sequence (causal), through ``flash``
+Two execution paths per mixer:
+  * ``*_full``   — prefill over a full sequence (causal), through ``flash``
     on the card.
-  * ``gqa_decode`` — one new token against a cache, through ``flash_decode``
-    on the card.
-
-MLA (DeepSeek) comes with the MLA slice of the port.
+  * ``*_decode`` — one new token against a cache, through ``flash_decode``
+    on the card.  MLA decodes in *absorbed* form: attention in the latent
+    space over the compressed cache, so the per-head K/V are never formed
+    over the whole cache.
 """
 from __future__ import annotations
+
+import numpy as np
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models.layers import ParamSpec
 
 
 def gqa_spec(cfg: ModelConfig) -> dict:
@@ -74,3 +78,103 @@ def gqa_decode(p, cfg: ModelConfig, x, cache_k, cache_v, t, impl=None):
     )
     out = out.reshape(B, 1, cfg.num_heads * cfg.head_dim)
     return L.linear(p["wo"], out, dt), (cache_k, cache_v)
+
+
+# ----------------------------------------------------------------------------------
+# MLA (DeepSeek-V3)
+# ----------------------------------------------------------------------------------
+
+
+def mla_spec(cfg: ModelConfig) -> dict:
+    D, H = cfg.d_model, cfg.num_heads
+    nope, rope, vdim = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    s: dict = {
+        # KV down-projection: latent c_kv + shared rope key
+        "wkv_a": L.linear_spec(D, cfg.kv_lora_rank + rope, "embed", None),
+        "kv_norm": L.rms_norm_spec(cfg.kv_lora_rank),
+        # up-projections from the latent
+        "wk_b": ParamSpec((cfg.kv_lora_rank, H, nope), (None, "heads_dim", None), "normal"),
+        "wv_b": ParamSpec((cfg.kv_lora_rank, H, vdim), (None, "heads_dim", None), "normal"),
+        "wo": L.linear_spec(H * vdim, D, "heads", "embed"),
+    }
+    if cfg.q_lora_rank:
+        s["wq_a"] = L.linear_spec(D, cfg.q_lora_rank, "embed", None)
+        s["q_norm"] = L.rms_norm_spec(cfg.q_lora_rank)
+        s["wq_b"] = ParamSpec((cfg.q_lora_rank, H, nope + rope), (None, "heads_dim", None),
+                              "normal")
+    else:
+        s["wq"] = ParamSpec((D, H, nope + rope), ("embed", "heads_dim", None), "normal")
+    return s
+
+
+def _mla_q(p, cfg: ModelConfig, x, positions, dt):
+    nope = cfg.qk_nope_head_dim
+    if cfg.q_lora_rank:
+        cq = L.rms_norm(p["q_norm"], L.linear(p["wq_a"], x, dt), cfg.norm_eps)
+        q = torch.einsum("bsr,rhd->bshd", cq, p["wq_b"].to(dt))
+    else:
+        q = torch.einsum("bsD,Dhd->bshd", x.to(dt), p["wq"].to(dt))
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    return q_nope, L.apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latent(p, cfg: ModelConfig, x, positions, dt):
+    kv = L.linear(p["wkv_a"], x, dt)
+    c_kv = L.rms_norm(p["kv_norm"], kv[..., :cfg.kv_lora_rank], cfg.norm_eps)
+    k_rope = kv[..., cfg.kv_lora_rank:][:, :, None, :]          # (B,S,1,rope)
+    k_rope = L.apply_rope(k_rope, positions, cfg.rope_theta)
+    return c_kv, k_rope[:, :, 0, :]
+
+
+def mla_full(p, cfg: ModelConfig, x, positions, impl=None):
+    """Expanded MLA for prefill: the per-head K and V are formed from the
+    latent, and the shared rope key is broadcast over the heads.  Returns
+    (out, the compressed cache (B,S,kv_lora_rank + rope))."""
+    dt = L.torch_dtype(cfg.compute_dtype)
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    q_nope, q_rope = _mla_q(p, cfg, x, positions, dt)
+    c_kv, k_rope = _mla_latent(p, cfg, x, positions, dt)
+    k_nope = torch.einsum("bsr,rhd->bshd", c_kv, p["wk_b"].to(dt))
+    v = torch.einsum("bsr,rhd->bshd", c_kv, p["wv_b"].to(dt))
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, cfg.qk_rope_head_dim)],
+                  dim=-1)
+    out = ops.attention(q, k, v.contiguous(), causal=True, impl=impl or cfg.attn_impl)
+    out = out.reshape(B, S, H * cfg.v_head_dim)
+    return L.linear(p["wo"], out, dt), torch.cat([c_kv, k_rope], dim=-1)
+
+
+def mla_scale(cfg: ModelConfig) -> float:
+    """1/sqrt(qk_head_dim), computed in float32 as the reference computes it
+    (a Python float: the reference's jax array cannot reach its Pallas
+    kernel, ROADMAP §3 fault 9)."""
+    return float(np.float32(1) / np.sqrt(np.float32(cfg.qk_head_dim)))
+
+
+def mla_decode(p, cfg: ModelConfig, x, cache, t, impl=None):
+    """Absorbed-form decode.  x: (B,1,D); cache: (B,Smax,kv_lora_rank + rope)
+    compressed entries; t: 0-d int32 on the cache's device.
+
+    ``wk_b`` is absorbed into the query, so attention runs in the latent
+    space with one kv head shared by all H query heads: q (B,1,H,R+rope)
+    against the cache itself as K, and its first R columns (a view) as V.
+    Writes the new entry into ``cache`` IN PLACE at position ``t`` and
+    returns it."""
+    dt = L.torch_dtype(cfg.compute_dtype)
+    B = x.shape[0]
+    H, R = cfg.num_heads, cfg.kv_lora_rank
+    positions = t.reshape(1, 1).expand(B, 1)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions, dt)           # (B,1,H,*)
+    c_new, kr_new = _mla_latent(p, cfg, x, positions, dt)       # (B,1,R), (B,1,rope)
+    entry = torch.cat([c_new, kr_new], dim=-1)
+    cache.index_copy_(1, t.reshape(1).long(), entry.to(cache.dtype))
+    k_cat = cache.to(dt)[:, :, None, :]                          # (B,S,1,R+rope)
+    # absorb W_uk into q:  q_abs = q_nope @ W_uk  -> latent-space query
+    q_abs = torch.einsum("bqhd,rhd->bqhr", q_nope, p["wk_b"].to(dt))  # (B,1,H,R)
+    q_cat = torch.cat([q_abs, q_rope], dim=-1)                  # (B,1,H,R+rope)
+    out_lat = ops.attention(q_cat, k_cat, k_cat[..., :R], causal=False, kv_len=t + 1,
+                            impl=impl or cfg.attn_impl, decode=True, scale=mla_scale(cfg))
+    out = torch.einsum("bqhr,rhd->bqhd", out_lat, p["wv_b"].to(dt))
+    out = out.reshape(B, 1, H * cfg.v_head_dim)
+    return L.linear(p["wo"], out, dt), cache

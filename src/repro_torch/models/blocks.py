@@ -1,13 +1,17 @@
 """Per-layer blocks: spec + full-sequence + decode application, per block kind.
 
-Kinds ported so far (``PORTED_KINDS``), as in ``repro/models/blocks.py``:
+Kinds, as in ``repro/models/blocks.py``:
   attn_dense  pre-LN GQA attention + pre-LN SwiGLU
+  attn_moe    pre-LN GQA attention + pre-LN MoE FFN
+  mla_dense   pre-LN MLA attention + pre-LN SwiGLU
+  mla_moe     pre-LN MLA attention + pre-LN MoE FFN (DeepSeek)
   mamba2      pre-LN Mamba2 mixer (no separate FFN)
   rwkv6       RWKV6 time-mix + channel-mix (LN-per-submodule)
   zamba_group ``inner`` Mamba2 layers + one shared-attention invocation
-The MoE and MLA kinds come with their families.
 
-Decode updates a layer's cache entry in place (the attention cache at the
+``block_full`` returns the layer's MoE aux loss (None for a layer without
+MoE) beside its cache entry.
+Decode updates a layer's cache entry in place (the attention caches at the
 device ``t``, the SSM states by copy) and returns it.
 """
 from __future__ import annotations
@@ -17,28 +21,22 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as R
 from repro_torch.models import ssm as S
 from repro_torch.utils.tree import tree_map
 
-PORTED_KINDS = ("attn_dense", "mamba2", "rwkv6", "zamba_group")
-
-
-def _require(kind: str) -> None:
-    if kind not in PORTED_KINDS:
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet "
-                                  f"(ported: {PORTED_KINDS})")
+ATTN_KINDS = ("attn_dense", "attn_moe", "mla_dense", "mla_moe")
 
 
 def block_spec(cfg: ModelConfig, kind: str) -> dict:
-    _require(kind)
     D = cfg.d_model
-    if kind == "attn_dense":
+    if kind in ATTN_KINDS:
         return {
             "ln1": L.rms_norm_spec(D),
             "ln2": L.rms_norm_spec(D),
-            "attn": A.gqa_spec(cfg),
-            "ffn": L.swiglu_spec(D, cfg.d_ff),
+            "attn": A.mla_spec(cfg) if kind.startswith("mla") else A.gqa_spec(cfg),
+            "ffn": MOE.moe_spec(cfg) if kind.endswith("moe") else L.swiglu_spec(D, cfg.d_ff),
         }
     if kind == "mamba2":
         return {"ln1": L.rms_norm_spec(D), "mixer": S.mamba2_spec(cfg)}
@@ -49,10 +47,12 @@ def block_spec(cfg: ModelConfig, kind: str) -> dict:
             "tmix": R.time_mix_spec(cfg),
             "cmix": R.channel_mix_spec(cfg),
         }
-    return {   # zamba_group
-        "mamba": stacked(block_spec(cfg, "mamba2"), cfg.shared_attn_period),
-        "shared_in": L.linear_spec(2 * D, D, "embed", "embed"),
-    }
+    if kind == "zamba_group":
+        return {
+            "mamba": stacked(block_spec(cfg, "mamba2"), cfg.shared_attn_period),
+            "shared_in": L.linear_spec(2 * D, D, "embed", "embed"),
+        }
+    raise ValueError(kind)
 
 
 def shared_attn_spec(cfg: ModelConfig) -> dict:
@@ -68,11 +68,12 @@ def stacked(specs, n: int):
 
 def cache_entry_spec(cfg: ModelConfig, kind: str, batch: int, max_seq: int) -> dict:
     """{name: (shape, dtype string) | nested dict} of one layer's cache entry."""
-    _require(kind)
     dt = cfg.compute_dtype
     kv = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
-    if kind == "attn_dense":
+    if kind in ("attn_dense", "attn_moe"):
         return {"k": (kv, dt), "v": (kv, dt)}
+    if kind in ("mla_dense", "mla_moe"):
+        return {"ckv": ((batch, max_seq, cfg.mla_cache_dim), dt)}
     if kind == "mamba2":
         E, N, H, P, W = S._dims(cfg)
         return {"conv": ((batch, W - 1, E + 2 * N), dt),
@@ -81,7 +82,9 @@ def cache_entry_spec(cfg: ModelConfig, kind: str, batch: int, max_seq: int) -> d
         D, H, Dh = R._dims(cfg)
         return {"xt": ((batch, D), dt), "xc": ((batch, D), dt),
                 "wkv": ((batch, H, Dh, Dh), "float32")}
-    inner = cfg.shared_attn_period      # zamba_group
+    if kind != "zamba_group":
+        raise ValueError(kind)
+    inner = cfg.shared_attn_period
     mamba = {k: ((inner,) + shp, d)
              for k, (shp, d) in cache_entry_spec(cfg, "mamba2", batch, max_seq).items()}
     return {"mamba": mamba, "shared_k": (kv, dt), "shared_v": (kv, dt)}
@@ -91,26 +94,37 @@ def _index(tree, i: int):
     return tree_map(lambda x: x[i], tree)
 
 
-def block_full(kind, p, cfg: ModelConfig, h, positions, *, want_cache=False,
-               emb0=None, shared_p=None, impl=None):
-    """Returns (h, cache_entry | None)."""
-    _require(kind)
-    cache = None
+def _ffn(kind, p, cfg: ModelConfig, xn, moe_groups: int, dt):
+    """The block's FFN: (out, the MoE aux loss or None)."""
+    if kind.endswith("moe"):
+        return MOE.moe_ffn(p, cfg, xn, moe_groups)
+    return L.swiglu(p, xn, dt), None
+
+
+def block_full(kind, p, cfg: ModelConfig, h, positions, *, moe_groups=16,
+               want_cache=False, emb0=None, shared_p=None, impl=None):
+    """Returns (h, cache_entry | None, aux_loss | None)."""
+    cache = aux = None
     dt = L.torch_dtype(cfg.compute_dtype)
-    if kind == "attn_dense":
+    if kind in ATTN_KINDS:
         xn = L.rms_norm(p["ln1"], h, cfg.norm_eps)
-        attn_out, (k, v) = A.gqa_full(p["attn"], cfg, xn, positions, impl=impl)
+        if kind.startswith("mla"):
+            attn_out, ckv = A.mla_full(p["attn"], cfg, xn, positions, impl=impl)
+            cache = {"ckv": ckv} if want_cache else None
+        else:
+            attn_out, (k, v) = A.gqa_full(p["attn"], cfg, xn, positions, impl=impl)
+            cache = {"k": k, "v": v} if want_cache else None
         h = h + attn_out
         xn = L.rms_norm(p["ln2"], h, cfg.norm_eps)
-        h = h + L.swiglu(p["ffn"], xn, dt)
-        return h, ({"k": k, "v": v} if want_cache else None)
+        ffn_out, aux = _ffn(kind, p["ffn"], cfg, xn, moe_groups, dt)
+        return h + ffn_out, cache, aux
 
     if kind == "mamba2":
         xn = L.rms_norm(p["ln1"], h, cfg.norm_eps)
         out, state = S.mamba2_full(p["mixer"], cfg, xn, want_state=want_cache, impl=impl)
         if want_cache:
             cache = {"conv": state[0], "ssm": state[1]}
-        return h + out, cache
+        return h + out, cache, aux
 
     if kind == "rwkv6":
         xn = L.rms_norm(p["ln1"], h, cfg.norm_eps)
@@ -122,39 +136,45 @@ def block_full(kind, p, cfg: ModelConfig, h, positions, *, want_cache=False,
             cache = {"xt": st[0], "xc": xc, "wkv": st[1]}
         else:
             cm_out = R.channel_mix(p["cmix"], cfg, xn2)
-        return h + cm_out, cache
+        return h + cm_out, cache, aux
 
-    # zamba_group: ``inner`` mamba2 layers, then the shared attention block
-    # on concat(h, embedding stream)
+    if kind != "zamba_group":
+        raise ValueError(kind)
+    # ``inner`` mamba2 layers, then the shared attention block on
+    # concat(h, embedding stream)
     mcaches = []
     for i in range(cfg.shared_attn_period):
-        h, ci = block_full("mamba2", _index(p["mamba"], i), cfg, h, positions,
-                           want_cache=want_cache, impl=impl)
+        h, ci, _ = block_full("mamba2", _index(p["mamba"], i), cfg, h, positions,
+                              want_cache=want_cache, impl=impl)
         mcaches.append(ci)
     x_in = L.linear(p["shared_in"], torch.cat([h, emb0.to(h.dtype)], dim=-1), dt)
-    hs, scache = block_full("attn_dense", shared_p, cfg, x_in, positions,
-                            want_cache=want_cache, impl=impl)
+    hs, scache, _ = block_full("attn_dense", shared_p, cfg, x_in, positions,
+                               want_cache=want_cache, impl=impl)
     h = h + hs
     if want_cache:
         mstack = tree_map(lambda *xs: torch.stack(xs), *mcaches)
         cache = {"mamba": mstack, "shared_k": scache["k"], "shared_v": scache["v"]}
-    return h, cache
+    return h, cache, aux
 
 
 def block_decode(kind, p, cfg: ModelConfig, h, cache, t, *, emb0=None, shared_p=None,
                  impl=None):
     """Returns (h, cache); the cache entry (views into the model's cache) is
-    updated in place."""
-    _require(kind)
+    updated in place.  A MoE FFN routes the B tokens as one group."""
     dt = L.torch_dtype(cfg.compute_dtype)
-    if kind == "attn_dense":
+    if kind in ATTN_KINDS:
         xn = L.rms_norm(p["ln1"], h, cfg.norm_eps)
-        attn_out, (k, v) = A.gqa_decode(p["attn"], cfg, xn, cache["k"], cache["v"], t,
-                                        impl=impl)
+        if kind.startswith("mla"):
+            attn_out, ckv = A.mla_decode(p["attn"], cfg, xn, cache["ckv"], t, impl=impl)
+            cache = {"ckv": ckv}
+        else:
+            attn_out, (k, v) = A.gqa_decode(p["attn"], cfg, xn, cache["k"], cache["v"], t,
+                                            impl=impl)
+            cache = {"k": k, "v": v}
         h = h + attn_out
         xn = L.rms_norm(p["ln2"], h, cfg.norm_eps)
-        h = h + L.swiglu(p["ffn"], xn, dt)
-        return h, {"k": k, "v": v}
+        ffn_out, _ = _ffn(kind, p["ffn"], cfg, xn, 1, dt)
+        return h + ffn_out, cache
 
     if kind == "mamba2":
         xn = L.rms_norm(p["ln1"], h, cfg.norm_eps)
@@ -174,7 +194,8 @@ def block_decode(kind, p, cfg: ModelConfig, h, cache, t, *, emb0=None, shared_p=
         cache["xc"].copy_(xc)
         return h + cm_out, cache
 
-    # zamba_group
+    if kind != "zamba_group":
+        raise ValueError(kind)
     for i in range(cfg.shared_attn_period):
         h, _ = block_decode("mamba2", _index(p["mamba"], i), cfg, h,
                             _index(cache["mamba"], i), t, impl=impl)

@@ -9,6 +9,7 @@ tensors.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import zlib
 from concurrent.futures import ThreadPoolExecutor
@@ -73,22 +74,62 @@ def leaf_seed(seed: int, path: str) -> int:
     return (zlib.crc32(path.encode()) ^ (int(seed) * 0x9E3779B1)) & 0xFFFFFFFF
 
 
+# a leaf of more elements than SLICE_ABOVE is drawn in slices along its leading
+# dimensions, each of at most SLICE_ELEMS elements where its shape allows
+SLICE_ABOVE = 2**30
+SLICE_ELEMS = 2**24
+
+
+def leaf_slices(shape: tuple) -> tuple[list, int]:
+    """(the leading-index tuples of a large leaf's slices, how many leading
+    dimensions they index).  The leading dimensions are indexed until a
+    slice (the trailing dimensions, never fewer than the last two) holds at
+    most SLICE_ELEMS elements; a leaf of two dimensions has none (0)."""
+    k = 0
+    while k < len(shape) - 2 and int(np.prod(shape[k:])) > SLICE_ELEMS:
+        k += 1
+    return list(itertools.product(*(range(n) for n in shape[:k]))), k
+
+
 def materialize(specs, seed: int, dtype=torch.float32, device="cpu"):
     """Spec tree -> tensor tree.  Each leaf draws from its own CPU generator
     (``leaf_seed``), so the values depend on neither the process nor the
     device they end up on, nor on the order the leaves are drawn in: a pool
     of threads draws them, largest first (a 4B-parameter model takes the
-    time of its largest leaf, not of the sum)."""
+    time of its largest leaf, not of the sum).  A leaf of more than
+    SLICE_ABOVE elements (deepseek-v3's stacked experts) is drawn in slices
+    (``leaf_slices``), slice i from its own generator seeded with
+    ``leaf_seed(seed, f"{path}#{i}")``, on the same pool and straight into
+    the leaf on ``device``: the host never holds the whole leaf in float32."""
     def make(path, spec):
         gen = torch.Generator(device="cpu").manual_seed(leaf_seed(seed, path))
         return _init_leaf(gen, spec, dtype).to(device)
 
+    def fill(out, idx, spec, slice_seed):
+        gen = torch.Generator(device="cpu").manual_seed(slice_seed)
+        out[idx].copy_(_init_leaf(gen, spec, dtype))
+
     named = []
     tree_map_with_path(lambda path, spec: named.append((path, spec)), specs)
-    named.sort(key=lambda ps: -int(np.prod(ps[1].shape)))
+    jobs, sliced = [], {}                 # jobs: (elements, key, fn, args)
+    for path, spec in named:
+        n = int(np.prod(spec.shape))
+        idxs, k = leaf_slices(spec.shape) if n > SLICE_ABOVE else ([], 0)
+        if not k:                         # small, or no leading dimension to slice
+            jobs.append((n, path, make, (path, spec)))
+            continue
+        out = sliced[path] = torch.empty(spec.shape, dtype=dtype, device=device)
+        sub = ParamSpec(spec.shape[k:], spec.axes[k:], spec.init, spec.scale)
+        for i, idx in enumerate(idxs):
+            jobs.append((int(np.prod(sub.shape)), (path, i), fill,
+                         (out, idx, sub, leaf_seed(seed, f"{path}#{i}"))))
+    jobs.sort(key=lambda job: -job[0])
     with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
-        futures = {path: pool.submit(make, path, spec) for path, spec in named}
-        return tree_map_with_path(lambda path, _spec: futures[path].result(), specs)
+        futures = {key: pool.submit(fn, *args) for _, key, fn, args in jobs}
+        for f in futures.values():
+            f.result()
+    return tree_map_with_path(
+        lambda path, _spec: sliced[path] if path in sliced else futures[path].result(), specs)
 
 
 def abstract_params(specs, dtype=torch.float32):

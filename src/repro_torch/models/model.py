@@ -11,11 +11,16 @@ structure with the reference's paths, shapes and dtypes (``cache_specs``):
 nested entries for zamba2's groups (``{"mamba": {"conv", "ssm"}, "shared_k",
 "shared_v"}``) and fp32 recurrent states for the SSM families.
 
-Ported plans: dense GQA decoders (``attn_dense``), mamba2 with zamba2's
-shared-attention groups, and rwkv6; MoE, MLA, codebooks, image tokens and
-MTP raise ``NotImplementedError``.  Training differentiates ``loss_fn`` with
-autograd over a plain dict of tensors (``train/step.py``); the reference's
-layer remat (``jax.checkpoint``) only saves memory and is left out.
+Every plan of the reference serves: dense and MoE GQA decoders, MLA with
+dense and MoE FFNs (DeepSeek's first dense layers become a segment of
+their own), mamba2 with zamba2's shared-attention groups, rwkv6, and the
+codebook (musicgen) and image-token (llava) inputs; MLA's cache is
+``{"ckv": (L,B,S,kv_lora_rank + rope)}``.  Training differentiates ``loss_fn``
+with autograd over a plain dict of tensors (``train/step.py``) for the
+plans without MoE, MTP, codebooks or image tokens; those raise
+``NotImplementedError`` until the training slice of the port
+(``require_trainable``).  The reference's layer remat (``jax.checkpoint``)
+only saves memory and is left out.
 """
 from __future__ import annotations
 
@@ -54,12 +59,14 @@ def layer_plan(cfg: ModelConfig) -> list[Segment]:
                 plan.append(Segment("mamba2", tail))
             return plan
         return [Segment("mamba2", cfg.num_layers)]
-    if (cfg.mixer != "attn" or cfg.num_experts or cfg.num_codebooks
-            or cfg.num_image_tokens or cfg.mtp_depth or cfg.shared_attn_period):
-        raise NotImplementedError(
-            f"{cfg.name}: only dense GQA decoders, mamba2/zamba2 and rwkv6 are "
-            "ported so far")
-    return [Segment("attn_dense", cfg.num_layers)]
+    base = "mla" if cfg.mixer == "mla" else "attn"
+    if cfg.num_experts:
+        plan = []
+        if cfg.first_dense_layers:
+            plan.append(Segment(f"{base}_dense", cfg.first_dense_layers))
+        plan.append(Segment(f"{base}_moe", cfg.num_layers - cfg.first_dense_layers))
+        return plan
+    return [Segment(f"{base}_dense", cfg.num_layers)]
 
 
 # ----------------------------------------------------------------------------------
@@ -69,7 +76,12 @@ def layer_plan(cfg: ModelConfig) -> list[Segment]:
 
 def param_specs(cfg: ModelConfig) -> dict:
     D, V = cfg.d_model, cfg.vocab_size
-    specs: dict[str, Any] = {"embed": L.embedding_spec(V, D)}
+    specs: dict[str, Any] = {}
+    if cfg.num_codebooks:
+        specs["embed"] = {"table": ParamSpec((cfg.num_codebooks, V, D),
+                                             (None, "vocab", "embed"), "embed")}
+    else:
+        specs["embed"] = L.embedding_spec(V, D)
     if cfg.mixer == "rwkv6":
         specs["ln0"] = L.rms_norm_spec(D)
     for i, seg in enumerate(layer_plan(cfg)):
@@ -78,12 +90,33 @@ def param_specs(cfg: ModelConfig) -> dict:
         specs["shared_attn"] = BL.shared_attn_spec(cfg)
     specs["final_norm"] = L.rms_norm_spec(D)
     if not cfg.tie_embeddings:
-        specs["head"] = ParamSpec((D, V), ("embed", "vocab"), "normal")
+        if cfg.num_codebooks:
+            specs["head"] = ParamSpec((cfg.num_codebooks, D, V), (None, "embed", "vocab"),
+                                      "normal")
+        else:
+            specs["head"] = ParamSpec((D, V), ("embed", "vocab"), "normal")
+    if cfg.mtp_depth:
+        specs["mtp"] = {
+            "proj": L.linear_spec(2 * D, D, "embed", "embed"),
+            "block": BL.block_spec(cfg, "mla_dense" if cfg.mixer == "mla" else "attn_dense"),
+            "norm": L.rms_norm_spec(D),
+        }
     return specs
 
 
 def count_params_analytic(cfg: ModelConfig) -> int:
     return sum(int(np.prod(s.shape)) for s in tree_leaves(param_specs(cfg)))
+
+
+def count_active_params(cfg: ModelConfig) -> int:
+    """Per-token active params (MoE: top-k + shared experts only)."""
+    total = count_params_analytic(cfg)
+    if not cfg.num_experts:
+        return total
+    D, F, E, K = cfg.d_model, cfg.moe_d_ff, cfg.num_experts, cfg.num_experts_per_tok
+    moe_layers = cfg.num_layers - cfg.first_dense_layers
+    per_expert = 3 * D * F
+    return total - moe_layers * E * per_expert + moe_layers * K * per_expert
 
 
 class LM(nn.Module):
@@ -102,7 +135,7 @@ class LM(nn.Module):
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (B,S) -> fp32 logits (B,S,V)."""
-        h, _ = forward_full(self, self.cfg, {"tokens": tokens})
+        h, _, _ = forward_full(self, self.cfg, {"tokens": tokens})
         return logits_fn(self, self.cfg, h)
 
 
@@ -180,16 +213,34 @@ def params_tree(model: LM) -> dict:
 
 
 def embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """tokens (B,S), or (B,S,K) with codebooks (the K embeddings summed), ->
+    (B,S,D); with image tokens and ``image_embeds`` (B,n,D) in the batch, those
+    take the first n positions."""
     tree = _tree(params)
-    h = L.embed(tree["embed"], batch["tokens"], L.torch_dtype(cfg.compute_dtype))
+    dt = L.torch_dtype(cfg.compute_dtype)
+    tokens = batch["tokens"]
+    if cfg.num_codebooks:
+        tabs = tree["embed"]["table"]                       # (K,V,D)
+        h = torch.zeros(tokens.shape[:2] + (cfg.d_model,), dtype=dt, device=tokens.device)
+        for k in range(cfg.num_codebooks):
+            h = h + L.embed({"table": tabs[k]}, tokens[..., k], dt)
+    else:
+        h = L.embed(tree["embed"], tokens, dt)
+    if cfg.num_image_tokens and "image_embeds" in batch:
+        n = cfg.num_image_tokens
+        h = torch.cat([batch["image_embeds"].to(dt), h[:, n:]], dim=1)
     if cfg.mixer == "rwkv6":
         h = L.rms_norm(tree["ln0"], h, cfg.norm_eps)
     return h
 
 
 def logits_fn(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    """h: (B,C,D) -> fp32 logits (B,C,V)."""
+    """h: (B,C,D) -> fp32 logits (B,C,V), or (B,C,K,V) with codebooks."""
     tree = _tree(params)
+    if cfg.num_codebooks:
+        if cfg.tie_embeddings:
+            return torch.einsum("bcd,kvd->bckv", h.float(), tree["embed"]["table"].float())
+        return torch.einsum("bcd,kdv->bckv", h.float(), tree["head"].float())
     if cfg.tie_embeddings:
         return L.unembed(tree["embed"], h)
     return h.float() @ tree["head"].float()
@@ -200,24 +251,30 @@ def logits_fn(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 # ----------------------------------------------------------------------------------
 
 
-def forward_full(params, cfg: ModelConfig, batch: dict, *, want_cache=False, impl=None):
-    """Returns (h_final, per-segment lists of per-layer cache entries | None)."""
+def forward_full(params, cfg: ModelConfig, batch: dict, *, want_cache=False,
+                 moe_groups=16, impl=None):
+    """Returns (h_final, per-segment lists of per-layer cache entries | None,
+    the MoE aux loss summed over the layers)."""
     tree = _tree(params)
     h = embed_inputs(tree, cfg, batch)
     B, S, _ = h.shape
     positions = torch.arange(S, device=h.device)[None].expand(B, S)
     emb0 = h if cfg.shared_attn_period else None
     shared_p = tree.get("shared_attn")
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     caches = []
     for i, seg in enumerate(layer_plan(cfg)):
         entries = []
         for p in _layers(params, i, seg.count):
-            h, c = BL.block_full(seg.kind, p, cfg, h, positions, want_cache=want_cache,
-                                 emb0=emb0, shared_p=shared_p, impl=impl)
+            h, c, a = BL.block_full(seg.kind, p, cfg, h, positions, moe_groups=moe_groups,
+                                    want_cache=want_cache, emb0=emb0, shared_p=shared_p,
+                                    impl=impl)
+            if a is not None:
+                aux = aux + a
             entries.append(c)
         caches.append(entries)
     h = L.rms_norm(tree["final_norm"], h, cfg.norm_eps)
-    return h, (caches if want_cache else None)
+    return h, (caches if want_cache else None), aux
 
 
 # ----------------------------------------------------------------------------------
@@ -265,11 +322,26 @@ def _shift_labels(cfg: ModelConfig, batch: dict):
     return labels, mask
 
 
+def require_trainable(cfg: ModelConfig) -> None:
+    """Refuse a config whose loss the port does not compute yet: the MoE aux
+    term, the MTP head, the codebooks' mean and the image mask come with the
+    training slice of the port.  Serving them is unaffected."""
+    missing = [name for name, on in (("MoE", cfg.num_experts), ("MTP", cfg.mtp_depth),
+                                     ("codebooks", cfg.num_codebooks),
+                                     ("image tokens", cfg.num_image_tokens)) if on]
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: training with {', '.join(missing)} is not ported yet; it comes "
+            "with the training slice of the port (ROADMAP §1); serving is ported")
+
+
 def loss_fn(params, cfg: ModelConfig, batch: dict, *, impl=None, z_loss: float = 1e-4):
     """Next-token cross entropy plus ``z_loss`` x mean(logsumexp^2), as the
-    reference's ``loss_fn`` for the dense plan (no MoE aux loss, no MTP
-    head).  Returns (loss, {"ce", "aux", "tokens"})."""
-    h, _ = forward_full(params, cfg, batch, impl=impl)
+    reference's ``loss_fn`` for the plans without MoE, MTP, codebooks or
+    image tokens (``require_trainable``).  Returns (loss, {"ce", "aux",
+    "tokens"})."""
+    require_trainable(cfg)
+    h, _, _ = forward_full(params, cfg, batch, impl=impl)
     labels, mask = _shift_labels(cfg, batch)
     ce, z, n = chunked_ce(params, cfg, h, labels, mask)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -305,7 +377,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> dict:
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, tokens_new: torch.Tensor, cache: dict, *,
                 impl=None):
-    """tokens_new: (B,) int.  Returns (fp32 logits (B,V), new cache).
+    """tokens_new: (B,) or (B,K) int.  Returns (fp32 logits (B,V) or (B,K,V),
+    new cache).
 
     The new cache holds the SAME tensors as ``cache``, updated in place (the
     attention caches at position ``cache["t"]``, the recurrent states by
@@ -335,11 +408,13 @@ def _place(dst: torch.Tensor, src: torch.Tensor) -> None:
 
 
 @torch.no_grad()
-def prefill(params, cfg: ModelConfig, batch: dict, max_seq: int, *, impl=None):
+def prefill(params, cfg: ModelConfig, batch: dict, max_seq: int, *, impl=None,
+            moe_groups=16):
     """Full-sequence prefill; returns (last-position logits, cache of len max_seq)."""
     tokens = batch["tokens"]
     B, S = tokens.shape[:2]
-    h, caches = forward_full(params, cfg, batch, want_cache=True, impl=impl)
+    h, caches, _ = forward_full(params, cfg, batch, want_cache=True, moe_groups=moe_groups,
+                                impl=impl)
     full = init_cache(cfg, B, max_seq, tokens.device)
     for i, entries in enumerate(caches):
         for j, entry in enumerate(entries):

@@ -65,10 +65,15 @@ class Engine:
         if tokens.shape[0] != self.batch or tokens.shape[1] > self.max_seq:
             raise ValueError(f"prompts {tuple(tokens.shape)} do not fit batch "
                              f"{self.batch} and max_seq {self.max_seq}")
+        # one routing group: what the reference's engine routes with on one
+        # device (its group count is the batch axis's device count)
         logits, self.cache = M.prefill(self.param_handle.current, self.cfg, prompts,
-                                       self.max_seq, impl=self.impl)
+                                       self.max_seq, impl=self.impl, moe_groups=1)
         self.last_logits = logits
-        self.last_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        if self.cfg.num_codebooks and nxt.ndim == 1:
+            nxt = nxt[:, None].expand(nxt.shape[0], self.cfg.num_codebooks).contiguous()
+        self.last_tokens = nxt
         return self.last_tokens
 
     def generate(self, n: int, on_token=None) -> np.ndarray:

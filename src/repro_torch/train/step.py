@@ -90,6 +90,10 @@ def loss_and_grads(params: dict, cfg: ModelConfig, batch: dict, *, impl=None,
 
 def make_train_step(cfg: ModelConfig, oc: adamw.OptConfig, *, microbatches: int = 1,
                     impl: Optional[str] = None, z_loss: float = 1e-4):
+    """Raises ``NotImplementedError`` for a config whose loss is not ported
+    yet (``models.model.require_trainable``), before any state is drawn."""
+    M.require_trainable(cfg)
+
     def train_step(state: dict, batch: dict):
         params = state["params"]
         B = batch["tokens"].shape[0]

@@ -564,8 +564,8 @@ def test_wrappers_refuse_other_devices(wrapper):
      torch.float32, "do not match"),
     (decode_attention._check, ((1, 2, 4, 32), (1, 8, 2, 32), (1, 8, 2, 32)),
      torch.float32, "one query token"),
-    (decode_attention._check, ((1, 1, 16, 576), (1, 8, 1, 576), (1, 8, 1, 512)),
-     torch.float32, "MLA"),
+    (decode_attention._check, ((1, 1, 16, 576), (1, 8, 1, 576), (1, 8, 1, 576)),
+     torch.float32, "head dims"),
 ])
 def test_wrapper_checks_refuse_what_the_kernel_does_not_take(check, shapes, dtype, match):
     q, k, v = (torch.zeros(s, dtype=dtype) for s in shapes)
@@ -589,6 +589,32 @@ def test_wrapper_checks_refuse_non_contiguous():
     k = torch.zeros(1, 8, 2, 32)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention._check(q, k, k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_check_takes_mla_value_view_of_the_cache(dtype):
+    """MLA's absorbed decode: V is the first 512 columns of the 576-wide
+    cache that is K, a view whose rows are 576 apart.  The check takes it
+    (and the plain version computes with it), and refuses a V whose rows do
+    not start on 16-byte units or whose last dimension is strided."""
+    q = torch.zeros(2, 1, 128, 576, dtype=dtype)
+    cache = torch.zeros(2, 64, 1, 576, dtype=dtype)
+    v = cache[..., :512]
+    assert not v.is_contiguous()
+    decode_attention._check(q, cache, v)
+    odd = torch.zeros(2, 64, 1, 515, dtype=dtype)[..., :512]
+    with pytest.raises(ValueError, match="16-byte units"):
+        decode_attention._check(q, cache, odd)
+    with pytest.raises(ValueError, match="16-byte units"):
+        decode_attention._check(q, cache, torch.zeros(2, 64, 1, 1024, dtype=dtype)[..., ::2])
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_attention._check(q, cache.transpose(0, 1).contiguous().transpose(0, 1), v)
+    g = torch.Generator().manual_seed(0)
+    q, cache = (torch.randn(x.shape, generator=g).to(dtype) for x in (q, cache))
+    got = decode_attention.flash_decode(q, cache, cache[..., :512], kv_len=40, scale=0.07)
+    want = ref.attention(q, cache, cache[..., :512].contiguous(), causal=False, kv_len=40,
+                         scale=0.07)
+    assert torch.equal(got, want)
 
 
 def _ssd_args(B, S, H, P, N, dtype=torch.float32, device="cpu", seed=0):
@@ -731,6 +757,9 @@ def _cuda_inputs(B, Sq, Skv, H, Hkv, Dq, Dv, dtype, seed=0):
     (2, 63, 14, 2, 64, 64, True),
     (2, 65, 14, 2, 64, 64, True),
     (2, 300, 14, 2, 64, 64, False),
+    (4, 512, 24, 8, 64, 64, True),     # granite-moe-3b-a800m's prefill, G = 3
+    (2, 128, 128, 128, 192, 128, True),   # deepseek-v3's MLA prefill heads
+    (2, 70, 4, 4, 48, 32, True),       # reduced MLA's prefill
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel_vs_plain(hopper, B, S, H, Hkv, Dq, Dv, causal, dtype):
@@ -758,6 +787,7 @@ def test_flash_kernel_vs_plain(hopper, B, S, H, Hkv, Dq, Dv, causal, dtype):
     (4, 1024, 32, 32, 64, 544), (4, 1024, 32, 32, 64, 65),    # zamba2-1.2b, G = 1
     (4, 1024, 32, 8, 128, 544), (4, 1024, 32, 8, 128, 65),    # qwen3-4b, D 128, G = 4
     (4, 1024, 32, 8, 128, 1024),
+    (4, 1024, 24, 8, 64, 544), (4, 1024, 24, 8, 64, 65),      # granite-moe, G = 3
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_decode_kernel_vs_plain(hopper, B, S, H, Hkv, D, kvl, dtype):
@@ -773,6 +803,51 @@ def test_flash_decode_kernel_vs_plain(hopper, B, S, H, Hkv, D, kvl, dtype):
         atol, rtol = ATTN_BF16_TOL["flash_decode"]
         assert _excess(got, want, rtol) <= atol
     assert torch.equal(got, again)           # fixed combine order: the same bits every run
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,R,rope,kvl,dtype", [
+    (4, 1024, 128, 512, 64, 544, "bfloat16"),    # deepseek-v3's absorbed decode
+    (4, 1024, 128, 512, 64, 1, "bfloat16"),
+    (4, 1024, 128, 512, 64, 65, "bfloat16"),
+    (4, 1024, 128, 512, 64, 1024, "bfloat16"),
+    (2, 96, 4, 32, 16, 40, "float32"),           # reduced MLA, G = 4
+    (2, 96, 4, 32, 16, 40, "bfloat16"),
+])
+def test_flash_decode_kernel_at_mla_absorbed_shape_vs_plain(hopper, B, S, H, R, rope, kvl,
+                                                            dtype):
+    """One kv head for all H query heads, Dq = R + rope, V the first R
+    columns of K's rows (a strided view), the scale 1/sqrt(qk_head_dim) of
+    the caller, not 1/sqrt(Dq)."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn((B, 1, H, R + rope), generator=g, device="cuda").to(TDT[dtype])
+    cache = torch.randn((B, S, 1, R + rope), generator=g, device="cuda").to(TDT[dtype])
+    scale = float(np.float32(1) / np.sqrt(np.float32(3 * rope)))
+    kv_len = torch.tensor(kvl, dtype=torch.int32, device="cuda")
+    n = decode_attention.launches
+    got = decode_attention.flash_decode(q, cache, cache[..., :R], kv_len=kv_len, scale=scale)
+    again = decode_attention.flash_decode(q, cache, cache[..., :R], kv_len=kv_len, scale=scale)
+    assert decode_attention.launches == n + 2
+    want = ref.attention(q.float(), cache.float(), cache[..., :R].float(), causal=False,
+                         kv_len=kvl, scale=scale)
+    assert tuple(got.shape) == (B, 1, H, R)
+    assert float((got.float() - want).abs().max()) < TOL[dtype]
+    if dtype == "bfloat16":
+        atol, rtol = ATTN_BF16_TOL["flash_decode"]
+        assert _excess(got, want, rtol) <= atol
+    assert torch.equal(got, again)
+    if H == 128:
+        assert decode_attention.heads_per_cta(R + rope, R, H, q.element_size()) == 16
+
+
+@pytest.mark.gpu
+def test_flash_decode_refuses_mla_absorbed_shape_in_float32(hopper):
+    """At Dq 576 a float32 K tile alone fills a block's shared memory: the
+    wrapper refuses, it does not fall back."""
+    q = torch.zeros((1, 1, 16, 576), device="cuda")
+    cache = torch.zeros((1, 64, 1, 576), device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        decode_attention.flash_decode(q, cache, cache[..., :512], kv_len=8)
 
 
 @pytest.mark.gpu

@@ -1,8 +1,10 @@
-"""The port's dense model against the reference package's, on the CPU.
+"""The port's models against the reference package's, on the CPU.
 
 Both packages get the same parameters (the reference's ``M.init_params``,
 carried over as numpy through ``params_from_numpy``) and the same prompts.
-The reference runs its Pallas kernels in interpret mode.  Tokens must be
+The reference runs its Pallas kernels in interpret mode, except for the MoE,
+MLA, codebook and image-token plans, which it runs at ``impl="xla"`` (its
+MLA decode cannot reach its Pallas kernel: ROADMAP §3 fault 9).  Tokens must be
 equal and float32 logits within atol 1e-4: the two frameworks sum the
 matrix products and the softmax in different orders, which moves float32
 logits of these reduced models by about 1e-6; 1e-4 leaves room for that and
@@ -24,6 +26,9 @@ from repro_torch.utils.tree import flatten_with_names
 
 ATOL = 1e-4
 ARCHS = ["qwen2-0.5b", "llama3.2-1b", "qwen3-4b", "granite-8b"]
+# the MoE, MLA (with MTP params), codebook and image-token plans
+PLAN_ARCHS = ["granite-moe-3b-a800m", "deepseek-v3-671b", "musicgen-large",
+              "llava-next-mistral-7b"]
 
 
 def _params(arch, seed=0):
@@ -129,15 +134,152 @@ def test_init_draws_each_leaf_from_its_own_generator(arch):
     assert all(torch.equal(got[n], want[n]) for n in want)
 
 
+def test_a_large_leaf_is_drawn_in_slices(monkeypatch):
+    """A leaf over ``SLICE_ABOVE`` elements (deepseek-v3's stacked experts at
+    full width) is drawn in slices along its leading dimensions, slice i
+    from its own generator; smaller leaves keep their one-generator draw."""
+    from repro_torch.models import layers as L
+    from repro_torch.utils.tree import tree_map_with_path
+
+    cfg = reduced(get_config("deepseek-v3-671b"))
+    specs = M.param_specs(cfg)
+    monkeypatch.setattr(L, "SLICE_ABOVE", 20_000)
+    monkeypatch.setattr(L, "SLICE_ELEMS", 4_096)
+    got = dict(flatten_with_names(L.materialize(specs, 5, torch.float32, "cpu")))
+    n_sliced = 0
+
+    def serial(path, spec):
+        nonlocal n_sliced
+        if int(np.prod(spec.shape)) <= 20_000 or len(spec.shape) <= 2:
+            want = L._init_leaf(torch.Generator().manual_seed(L.leaf_seed(5, path)), spec,
+                                torch.float32)
+            assert torch.equal(got[path], want), path
+            return
+        n_sliced += 1
+        idxs, k = L.leaf_slices(spec.shape)
+        sub = L.ParamSpec(spec.shape[k:], spec.axes[k:], spec.init, spec.scale)
+        assert 0 < k <= len(spec.shape) - 2 and len(idxs) == int(np.prod(spec.shape[:k]))
+        for i, idx in enumerate(idxs):
+            want = L._init_leaf(torch.Generator().manual_seed(L.leaf_seed(5, f"{path}#{i}")),
+                                sub, torch.float32)
+            assert torch.equal(got[path][idx], want), (path, i)
+
+    tree_map_with_path(serial, specs)
+    assert n_sliced >= 3                     # the stacked experts' wi_gate, wi_up, wo
+    # the slices' std is the whole leaf's: fan_in is the same second-last dim
+    w = got["seg1/ffn/wi_gate"]
+    assert abs(float(w.std()) * np.sqrt(cfg.d_model) - 1.0) < 0.05
+
+
 def test_params_from_numpy_refuses_a_foreign_tree():
     cfg = reduced(get_config("qwen2-0.5b"))
     with pytest.raises(ValueError, match="does not match"):
         M.params_from_numpy(cfg, {"embed": {"table": np.zeros((3, 3), np.float32)}}, "cpu")
 
 
-def test_unported_families_raise():
-    with pytest.raises(NotImplementedError):
-        M.param_specs(reduced(get_config("qwen2-0.5b")).replace(mixer="mla"))
+def _plan_inputs(cfg, B, S, seed):
+    """Prompts for ``cfg``'s plan: (B,S) tokens, (B,S,K) with codebooks, and
+    image embeddings over the first positions for an image-token model."""
+    rng = np.random.default_rng(seed)
+    shape = (B, S, cfg.num_codebooks) if cfg.num_codebooks else (B, S)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, shape).astype(np.int32)}
+    if cfg.num_image_tokens:
+        batch["image_embeds"] = rng.standard_normal(
+            (B, cfg.num_image_tokens, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+@pytest.mark.parametrize("arch", PLAN_ARCHS)
+def test_plan_prefill_and_greedy_decode_match_reference(arch):
+    """Prefill (image embeddings in llava's batch) and 8 greedy decode steps:
+    equal tokens, logits and caches within ATOL, against ``impl="xla"``."""
+    cfg_j, cfg, tree = _params(arch)
+    model = M.params_from_numpy(cfg, tree, "cpu")
+    params_j = jax.tree_util.tree_map(jnp.asarray, tree)
+    B, S, max_seq, steps = 2, 20, 32, 8
+    batch = _plan_inputs(cfg, B, S, 1)
+
+    lj, cache_j = JM.prefill(params_j, cfg_j, {k: jnp.asarray(v) for k, v in batch.items()},
+                             max_seq, impl="xla")
+    lt, cache_t = M.prefill(model, cfg, {k: torch.from_numpy(v) for k, v in batch.items()},
+                            max_seq)
+    assert [n for n, _ in jax_flatten(cache_j)] == [n for n, _ in flatten_with_names(cache_t)]
+    for (n, a), (_, b) in zip(jax_flatten(cache_j), flatten_with_names(cache_t)):
+        assert tuple(a.shape) == tuple(b.shape), n
+    want_shape = (B, cfg.num_codebooks, cfg.vocab_size) if cfg.num_codebooks else (
+        B, cfg.vocab_size)
+    assert tuple(lt.shape) == want_shape
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=0, atol=ATOL)
+
+    tok_j = jnp.argmax(lj, axis=-1).astype(jnp.int32)
+    tok_t = lt.argmax(-1).to(torch.int32)
+    for _ in range(steps):
+        np.testing.assert_array_equal(tok_t.numpy(), np.asarray(tok_j))
+        lj, cache_j = JM.decode_step(params_j, cfg_j, tok_j, cache_j, impl="xla")
+        lt, cache_t = M.decode_step(model, cfg, tok_t, cache_t)
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=0, atol=ATOL)
+        tok_j = jnp.argmax(lj, axis=-1).astype(jnp.int32)
+        tok_t = lt.argmax(-1).to(torch.int32)
+    np.testing.assert_array_equal(tok_t.numpy(), np.asarray(tok_j))
+    for (_, a), (_, b) in zip(jax_flatten(cache_j), flatten_with_names(cache_t)):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("arch", PLAN_ARCHS)
+def test_plan_forward_and_aux_loss_match_reference(arch):
+    """The full-sequence forward at the reference's default 16 routing
+    groups: final hidden states, logits and the summed MoE aux loss."""
+    cfg_j, cfg, tree = _params(arch)
+    model = M.params_from_numpy(cfg, tree, "cpu")
+    batch = _plan_inputs(cfg, 2, 24, 2)
+    params_j = jax.tree_util.tree_map(jnp.asarray, tree)
+    h_j, _, aux_j = JM.forward_full(params_j, cfg_j, {k: jnp.asarray(v) for k, v in batch.items()},
+                                    impl="xla")
+    with torch.no_grad():
+        h_t, _, aux_t = M.forward_full(model, cfg, {k: torch.from_numpy(v)
+                                                    for k, v in batch.items()})
+        logits = M.logits_fn(model, cfg, h_t)
+    np.testing.assert_allclose(h_t.numpy(), np.asarray(h_j), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(JM.logits_fn(params_j, cfg_j, h_j)),
+                               rtol=0, atol=ATOL)
+    np.testing.assert_allclose(float(aux_t), float(aux_j), rtol=1e-5, atol=1e-9)
+    assert (float(aux_t) > 0) == bool(cfg.num_experts)
+
+
+def test_bfloat16_tree_carries_across_bit_for_bit():
+    """Reduced deepseek-v3 in its own bfloat16: the reference's tree through
+    ``params_from_numpy`` and back, every leaf's bits unchanged."""
+    cfg_j = jax_reduced(jax_get_config("deepseek-v3-671b")).replace(param_dtype="bfloat16")
+    cfg = reduced(get_config("deepseek-v3-671b")).replace(param_dtype="bfloat16")
+    tree = jax.tree_util.tree_map(np.asarray, JM.init_params(cfg_j, jax.random.PRNGKey(4)))
+    model = M.params_from_numpy(cfg, tree, "cpu")
+    got = dict(flatten_with_names(M.params_tree(model)))
+    want = dict(jax_flatten(tree))
+    assert list(got) == list(want) and "mtp/block/attn/wkv_a/w" in got
+    for n, a in want.items():
+        assert got[n].dtype == torch.bfloat16, n
+        np.testing.assert_array_equal(got[n].view(torch.int16).numpy(),
+                                      np.asarray(a).view(np.int16), err_msg=n)
+
+
+@pytest.mark.parametrize("arch", PLAN_ARCHS)
+def test_training_refuses_an_unported_loss(arch, tmp_path):
+    """MoE, MTP, codebook and image configs: ``loss_fn``, the train step and
+    ``launch.train`` raise rather than train a different loss."""
+    from repro_torch.launch import train as T
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS
+
+    cfg = reduced(get_config(arch))
+    params = M.init_params(cfg, 0, "cpu").tree
+    batch = {k: torch.from_numpy(v) for k, v in _plan_inputs(cfg, 2, 20, 3).items()}
+    with pytest.raises(NotImplementedError, match="training slice"):
+        M.loss_fn(params, cfg, batch)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        TS.make_train_step(cfg, adamw.OptConfig())
+    with pytest.raises(NotImplementedError, match="training slice"):
+        T.main(["--arch", arch, "--reduced", "--device", "cpu", "--steps", "1",
+                "--ckpt-dir", str(tmp_path)])
 
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "granite-8b"])

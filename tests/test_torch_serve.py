@@ -48,9 +48,14 @@ def test_snapshot_migrate_restore_matches_head_dim_128_archs(tmp_path, capsys, a
 
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "deepseek-v3-671b",
                                   "musicgen-large", "llava-next-mistral-7b"])
-def test_unported_family_refuses_to_serve(arch):
-    with pytest.raises(NotImplementedError, match="ported"):
-        serve.main(["--arch", arch, "--reduced", "--gen", "2", "--device", "cpu"])
+def test_snapshot_migrate_restore_matches_moe_mla_codebook_image_archs(tmp_path, capsys, arch):
+    """MoE, MLA's compressed cache, codebook tokens (B, K) and the image-token
+    model's text path: a snapshot at the first token resumes bit for bit."""
+    rc = serve.main(["--arch", arch, "--reduced", "--snapshot-at", "1", "--gen", "6",
+                     "--ckpt-dir", str(tmp_path), "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "continuation MATCHES" in out
 
 
 def test_default_mode_generates(tmp_path, capsys):
@@ -70,6 +75,24 @@ def test_run_reports_a_bfloat16_snapshot(tmp_path):
     cfg = reduced(get_config("qwen2-0.5b"))
     kv = 2 * cfg.num_layers * 2 * 16 * cfg.num_kv_heads * cfg.head_dim * 4   # float32 cache
     assert rep["snapshot_bytes"] == kv + 4 + 2 * 4                           # + t + tokens
+
+
+def test_num_layers_serves_the_cut_config_and_run_takes_only_its_model(tmp_path):
+    """--num-layers cuts the depth the CLI serves; a model handed to ``run``
+    must be the config that the argv names."""
+    argv = ["--arch", "deepseek-v3-671b", "--reduced", "--num-layers", "2", "--batch", "2",
+            "--prompt-len", "5", "--gen", "4", "--max-seq", "12", "--snapshot-at", "2",
+            "--ckpt-dir", str(tmp_path), "--device", "cpu"]
+    args = serve.parse_args(argv)
+    cfg = serve.served_config(args)
+    assert cfg.num_layers == 2 and cfg.first_dense_layers == 1
+    rep = serve.run(args)
+    assert rep["match"] is True
+    again = serve.run(serve.parse_args(argv), M.init_params(cfg, 0, "cpu"))
+    np.testing.assert_array_equal(again["tokens"], rep["tokens"])
+    other = M.init_params(reduced(get_config("deepseek-v3-671b")), 0, "cpu")
+    with pytest.raises(ValueError, match="--num-layers"):
+        serve.run(serve.parse_args(argv), other)
 
 
 def test_cuda_is_required_unless_cpu_is_asked_for():
