@@ -15,12 +15,11 @@ Every plan of the reference serves: dense and MoE GQA decoders, MLA with
 dense and MoE FFNs (DeepSeek's first dense layers become a segment of
 their own), mamba2 with zamba2's shared-attention groups, rwkv6, and the
 codebook (musicgen) and image-token (llava) inputs; MLA's cache is
-``{"ckv": (L,B,S,kv_lora_rank + rope)}``.  Training differentiates ``loss_fn``
-with autograd over a plain dict of tensors (``train/step.py``) for the
-plans without MoE, MTP, codebooks or image tokens; those raise
-``NotImplementedError`` until the training slice of the port
-(``require_trainable``).  The reference's layer remat (``jax.checkpoint``)
-only saves memory and is left out.
+``{"ckv": (L,B,S,kv_lora_rank + rope)}``.  Every plan trains: ``loss_fn`` is
+the reference's (the MoE aux loss, the MTP head's loss, the codebooks' mean
+cross entropy, the image-token mask), differentiated with autograd over a
+plain dict of tensors (``train/step.py``).  The reference's layer remat
+(``jax.checkpoint``) only saves memory and is left out.
 """
 from __future__ import annotations
 
@@ -165,12 +164,15 @@ def _tree(params) -> dict:
 
 
 def _layers(params, i: int, count: int) -> list:
-    """Per-layer views of segment ``i``.  For a plain dict (the train state's
-    params) each stacked leaf is unbound once, so under autograd its
+    """Per-layer views of segment ``i``.  A segment given as a list is
+    already per layer (``train/step.py``'s leaves, one per layer).  For a
+    plain dict each stacked leaf is unbound once, so under autograd its
     gradient is assembled by one stack, not by ``count`` full-size scatters."""
     if isinstance(params, LM):
         return params.layers[i]
     seg = params[f"seg{i}"]
+    if isinstance(seg, list):
+        return seg
     per_leaf = {n: x.unbind(0) for n, x in flatten_with_names(seg)}
     return [unflatten_like(seg, {n: xs[j] for n, xs in per_leaf.items()})
             for j in range(count)]
@@ -291,8 +293,22 @@ def _ce_from_logits(logits, labels, mask):
     return torch.sum(ce), torch.sum(zl)
 
 
+def _chunk_ce(params, cfg: ModelConfig, h, labels, mask):
+    """(ce_sum, z_sum) of one chunk; with codebooks, the mean of the K
+    codebooks' sums (labels (B,C,K))."""
+    logits = logits_fn(params, cfg, h)
+    if not cfg.num_codebooks:
+        return _ce_from_logits(logits, labels, mask)
+    ce = z = 0.0
+    for k in range(cfg.num_codebooks):
+        c, zk = _ce_from_logits(logits[:, :, k], labels[..., k], mask)
+        ce, z = ce + c, z + zk
+    return ce / cfg.num_codebooks, z / cfg.num_codebooks
+
+
 def chunked_ce(params, cfg: ModelConfig, h, labels, mask, chunk: int = 1024):
-    """h: (B,S,D); labels: (B,S); mask: (B,S) fp32. Returns (ce_sum, z_sum, n).
+    """h: (B,S,D); labels: (B,S) or (B,S,K); mask: (B,S) fp32.  Returns
+    (ce_sum, z_sum, n).
 
     The reference recomputes each chunk's logits in its backward
     (``jax.checkpoint``); here autograd keeps them, which at the port's
@@ -306,12 +322,14 @@ def chunked_ce(params, cfg: ModelConfig, h, labels, mask, chunk: int = 1024):
     z_s = torch.zeros((), dtype=torch.float32, device=h.device)
     for c in range(S // chunk):
         sl = slice(c * chunk, (c + 1) * chunk)
-        ce, z = _ce_from_logits(logits_fn(params, cfg, h[:, sl]), labels[:, sl], mask[:, sl])
+        ce, z = _chunk_ce(params, cfg, h[:, sl], labels[:, sl], mask[:, sl])
         ce_s, z_s = ce_s + ce, z_s + z
     return ce_s, z_s, torch.clamp(torch.sum(mask), min=1.0)
 
 
 def _shift_labels(cfg: ModelConfig, batch: dict):
+    """Next-token labels and their mask: the last position has no label; an
+    image-token model scores no position before its last image token."""
     tokens = batch["tokens"]
     labels = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
     B, S = tokens.shape[:2]
@@ -319,34 +337,53 @@ def _shift_labels(cfg: ModelConfig, batch: dict):
     mask[:, -1] = 0.0
     if "loss_mask" in batch:
         mask = mask * batch["loss_mask"].float()
+    if cfg.num_image_tokens:
+        pos_ok = torch.arange(S, device=tokens.device) >= max(cfg.num_image_tokens - 1, 0)
+        mask = mask * pos_ok[None].float()
     return labels, mask
 
 
-def require_trainable(cfg: ModelConfig) -> None:
-    """Refuse a config whose loss the port does not compute yet: the MoE aux
-    term, the MTP head, the codebooks' mean and the image mask come with the
-    training slice of the port.  Serving them is unaffected."""
-    missing = [name for name, on in (("MoE", cfg.num_experts), ("MTP", cfg.mtp_depth),
-                                     ("codebooks", cfg.num_codebooks),
-                                     ("image tokens", cfg.num_image_tokens)) if on]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: training with {', '.join(missing)} is not ported yet; it comes "
-            "with the training slice of the port (ROADMAP §1); serving is ported")
+def _mtp_ce(params, cfg: ModelConfig, h, tokens, mask, impl):
+    """The MTP head's (ce_sum, n): position t predicts token t + 2 from the
+    final hidden state at t and the embedding of token t + 1, through
+    ``mtp/proj``, one dense block and ``mtp/norm``, scored by the head."""
+    tree = _tree(params)
+    mtp = tree["mtp"]
+    dt = L.torch_dtype(cfg.compute_dtype)
+    emb_next = L.embed(tree["embed"], tokens, dt)
+    x = L.linear(mtp["proj"], torch.cat([h[:, :-1], emb_next[:, 1:]], dim=-1), dt)
+    B, S1, _ = x.shape
+    pos = torch.arange(S1, device=x.device)[None].expand(B, S1)
+    kind = "mla_dense" if cfg.mixer == "mla" else "attn_dense"
+    x, _, _ = BL.block_full(kind, mtp["block"], cfg, x, pos, impl=impl)
+    x = L.rms_norm(mtp["norm"], x, cfg.norm_eps)
+    labels = torch.cat([tokens[:, 2:], tokens[:, -2:]], dim=1)[:, :S1]
+    mtp_mask = torch.ones((B, S1), dtype=torch.float32, device=x.device)
+    mtp_mask[:, -2:] = 0.0
+    ce, _, n = chunked_ce(tree, cfg, x, labels, mtp_mask * mask[:, :S1])
+    return ce, n
 
 
-def loss_fn(params, cfg: ModelConfig, batch: dict, *, impl=None, z_loss: float = 1e-4):
-    """Next-token cross entropy plus ``z_loss`` x mean(logsumexp^2), as the
-    reference's ``loss_fn`` for the plans without MoE, MTP, codebooks or
-    image tokens (``require_trainable``).  Returns (loss, {"ce", "aux",
-    "tokens"})."""
-    require_trainable(cfg)
-    h, _, _ = forward_full(params, cfg, batch, impl=impl)
+def loss_fn(params, cfg: ModelConfig, batch: dict, *, moe_groups=16, impl=None,
+            z_loss: float = 1e-4):
+    """The reference's ``loss_fn``: next-token cross entropy (the K
+    codebooks' mean with codebooks; no position before the last image
+    token scored) plus ``z_loss`` x mean(logsumexp^2), the MoE aux loss
+    summed over the layers, and, with an MTP head and no codebooks, 0.3 x
+    the MTP head's cross entropy.  ``moe_groups`` sets the routing groups
+    (and with them each expert's capacity); the train step passes 1, as the
+    reference's does on one device.  Returns (loss, {"ce", "aux", "tokens"}
+    and "mtp_ce" with an MTP head)."""
+    h, _, aux = forward_full(params, cfg, batch, moe_groups=moe_groups, impl=impl)
     labels, mask = _shift_labels(cfg, batch)
     ce, z, n = chunked_ce(params, cfg, h, labels, mask)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     loss = ce / n + z_loss * z / n + aux
-    return loss, {"ce": ce / n, "aux": aux, "tokens": n}
+    metrics = {"ce": ce / n, "aux": aux, "tokens": n}
+    if cfg.mtp_depth and not cfg.num_codebooks:
+        ce2, n2 = _mtp_ce(params, cfg, h, batch["tokens"], mask, impl)
+        loss = loss + 0.3 * ce2 / n2
+        metrics["mtp_ce"] = ce2 / n2
+    return loss, metrics
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:

@@ -56,6 +56,13 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
+# elements of a leaf updated at a time: the update's float32 temporaries
+# (g, m, v, their bias-corrected forms, the step) then take a few GB at most,
+# where a whole 10^9-element expert leaf would take ~30 GB of them; every
+# operation is elementwise, so the values do not depend on the slicing
+UPDATE_SLICE = 1 << 26
+
+
 @torch.no_grad()
 def apply_updates(params, grads, opt, step: torch.Tensor, oc: OptConfig):
     """Updates ``params`` and ``opt`` in place; returns (params, opt,
@@ -68,11 +75,7 @@ def apply_updates(params, grads, opt, step: torch.Tensor, oc: OptConfig):
     bc1 = 1.0 - torch.pow(b1, t)
     bc2 = 1.0 - torch.pow(b2, t)
 
-    flat_g = dict(flatten_with_names(grads))
-    flat_m = dict(flatten_with_names(opt["m"]))
-    flat_v = dict(flatten_with_names(opt["v"]))
-    for name, p in flatten_with_names(params):
-        g, m, v = flat_g[name], flat_m[name], flat_v[name]
+    def upd(p, g, m, v):
         g32 = g.float() * clip
         m32 = m.float() * b1 + g32 * (1 - b1)
         v32 = v.float() * b2 + torch.square(g32) * (1 - b2)
@@ -83,4 +86,12 @@ def apply_updates(params, grads, opt, step: torch.Tensor, oc: OptConfig):
         p.copy_(newp)
         m.copy_(m32)
         v.copy_(v32)
+
+    flat_g = dict(flatten_with_names(grads))
+    flat_m = dict(flatten_with_names(opt["m"]))
+    flat_v = dict(flatten_with_names(opt["v"]))
+    for name, p in flatten_with_names(params):
+        flat = [x.view(-1) for x in (p, flat_g[name].contiguous(), flat_m[name], flat_v[name])]
+        for i in range(0, p.numel(), UPDATE_SLICE):
+            upd(*(x[i:i + UPDATE_SLICE] for x in flat))
     return params, opt, {"grad_norm": gnorm, "lr": lr}

@@ -1,4 +1,4 @@
-"""Train step: microbatched (gradient accumulation in float32), one device.
+"""Train step: microbatched (gradient accumulation as the reference's), one device.
 
 The state is a plain dict ``{params, opt{m,v}, step}`` with the reference's
 tree and names (``repro/train/step.py``), so the checkpoint plane saves it
@@ -77,47 +77,96 @@ def init_train_state(cfg: ModelConfig, oc: adamw.OptConfig, seed: int, device) -
 def loss_and_grads(params: dict, cfg: ModelConfig, batch: dict, *, impl=None,
                    z_loss: float = 1e-4):
     """(loss, metrics, grads) of ``loss_fn`` at ``params``; grads is a tree
-    like ``params``.  The params are read, never written."""
+    like ``params``, each leaf in its parameter's dtype: zeros for a leaf
+    the loss does not use (a segment of 0 layers, as ``jax.grad`` gives).
+    The params are read, never written.  MoE layers route with one group:
+    the reference's train step passes its batch shard count, 1 on one
+    device (``loss_fn``'s own default, 16, is serving's).
+
+    A segment's stacked leaves are differentiated one layer at a time (a
+    leaf per layer, a view of the stacked tensor) and each stacked
+    gradient is assembled afterwards, one leaf at a time: through
+    ``unbind``'s backward every layer's gradient and their stack would be
+    held at once, twice the gradients' size (27 GB for granite-moe)."""
     named = flatten_with_names(params)
-    leaves = [p.detach().requires_grad_(True) for _, p in named]
-    tree = unflatten_like(params, {n: x for (n, _), x in zip(named, leaves)})
+    counts = {f"seg{i}": seg.count for i, seg in enumerate(M.layer_plan(cfg))}
+    wrt = []                                # (name, leaf): one a layer in a segment
+    flat = {}
+    for n, p in named:
+        if n.split("/")[0] not in counts:
+            flat[n] = p.detach().requires_grad_(True)
+            wrt.append((n, flat[n]))
+        else:
+            flat[n] = p
+    tree = unflatten_like(params, flat)
+    for key, count in counts.items():
+        seg_named = flatten_with_names(params[key])
+        layers = []
+        for j in range(count):
+            views = {n: x[j].detach().requires_grad_(True) for n, x in seg_named}
+            wrt.extend((f"{key}/{n}", v) for n, v in views.items())
+            layers.append(unflatten_like(params[key], views))
+        tree[key] = layers
     with torch.enable_grad():
-        loss, metrics = M.loss_fn(tree, cfg, batch, impl=impl, z_loss=z_loss)
-        grads = torch.autograd.grad(loss, leaves)
+        loss, metrics = M.loss_fn(tree, cfg, batch, moe_groups=1, impl=impl, z_loss=z_loss)
+        grads = list(torch.autograd.grad(loss, [t for _, t in wrt], allow_unused=True))
+    pieces: dict = {}
+    for (n, t), g in zip(wrt, grads):
+        pieces.setdefault(n, []).append(torch.zeros_like(t) if g is None else g)
+    del grads
+    out = {}
+    for n, p in named:
+        parts = pieces.pop(n, None)
+        if parts is None:                   # a segment of 0 layers
+            out[n] = torch.zeros_like(p)
+        elif n.split("/")[0] in counts:
+            out[n] = torch.stack(parts)
+        else:
+            out[n] = parts[0]
+        del parts                           # this leaf's pieces go before the next stack
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-            unflatten_like(params, {n: g for (n, _), g in zip(named, grads)}))
+            unflatten_like(params, out))
 
 
 def make_train_step(cfg: ModelConfig, oc: adamw.OptConfig, *, microbatches: int = 1,
                     impl: Optional[str] = None, z_loss: float = 1e-4):
-    """Raises ``NotImplementedError`` for a config whose loss is not ported
-    yet (``models.model.require_trainable``), before any state is drawn."""
-    M.require_trainable(cfg)
+    """The reference's train step on one device.  Microbatch gradients are
+    summed in bfloat16 for bfloat16 params, else in float32, divided by the
+    microbatch count in that dtype, then cast to float32, as the reference's
+    default ``accum_dtype`` does.  The step's metrics are the reference's (``loss``,
+    ``ce`` and the optimiser's) plus the loss's ``aux`` and ``mtp_ce``
+    (mean over the microbatches), which the reference computes but does not
+    return."""
+    adt = torch.bfloat16 if cfg.param_dtype == "bfloat16" else torch.float32
+    kw = dict(impl=impl, z_loss=z_loss)
 
     def train_step(state: dict, batch: dict):
         params = state["params"]
         B = batch["tokens"].shape[0]
         mb_count = effective_microbatches(B, microbatches, 1)
         if mb_count == 1:
-            loss, metrics, grads = loss_and_grads(params, cfg, batch, impl=impl,
-                                                  z_loss=z_loss)
+            loss, metrics, grads = loss_and_grads(params, cfg, batch, **kw)
         else:
-            gsum = lsum = ce = None
+            gsum = lsum = None
+            msum: dict = {}
             for i in range(mb_count):
                 mb = {k: x[i * (B // mb_count):(i + 1) * (B // mb_count)]
                       for k, x in batch.items()}
-                l, mets, g = loss_and_grads(params, cfg, mb, impl=impl, z_loss=z_loss)
+                l, mets, g = loss_and_grads(params, cfg, mb, **kw)
                 if gsum is None:
-                    gsum = tree_map(lambda x: x.float(), g)
-                    lsum, ce = l, mets["ce"]
+                    gsum, lsum = tree_map(lambda x: x.to(adt), g), l
                 else:
-                    gsum = tree_map(lambda a, b: a + b.float(), gsum, g)
-                    lsum, ce = lsum + l, ce + mets["ce"]
-            grads = tree_map(lambda g: g / mb_count, gsum)
+                    gsum = tree_map(lambda a, b: a + b.to(adt), gsum, g)
+                    lsum = lsum + l
+                for k in ("ce", "aux", "mtp_ce"):
+                    if k in mets:
+                        msum[k] = msum[k] + mets[k] if k in msum else mets[k]
+            grads = tree_map(lambda g: (g / mb_count).float(), gsum)
             loss = lsum / mb_count
-            metrics = {"ce": ce / mb_count}
+            metrics = {k: v / mb_count for k, v in msum.items()}
         _, _, om = adamw.apply_updates(params, grads, state["opt"], state["step"], oc)
         new_state = {"params": params, "opt": state["opt"], "step": state["step"] + 1}
-        return new_state, {"loss": loss, "ce": metrics.get("ce", loss), **om}
+        extra = {k: metrics[k] for k in ("aux", "mtp_ce") if k in metrics}
+        return new_state, {"loss": loss, "ce": metrics.get("ce", loss), **om, **extra}
 
     return train_step

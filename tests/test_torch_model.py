@@ -263,23 +263,44 @@ def test_bfloat16_tree_carries_across_bit_for_bit():
 
 
 @pytest.mark.parametrize("arch", PLAN_ARCHS)
-def test_training_refuses_an_unported_loss(arch, tmp_path):
-    """MoE, MTP, codebook and image configs: ``loss_fn``, the train step and
-    ``launch.train`` raise rather than train a different loss."""
+def test_training_runs_the_reference_loss(arch, tmp_path, monkeypatch):
+    """MoE, MTP, codebook and image configs train: ``loss_fn``, the train
+    step and ``launch.train --steps 1`` give the reference ``loss_fn``'s loss
+    on the trainer's own first state and batch (B2 S32, one routing group as
+    the train step uses).  The MoE configs take a capacity factor of 4 in both
+    packages, so that no expert overflows: where one does, the reference
+    erases a routed token (ROADMAP §3 fault 8)."""
+    import json
+
+    from repro_torch.data.pipeline import SyntheticTokens
     from repro_torch.launch import train as T
     from repro_torch.optim import adamw
     from repro_torch.train import step as TS
 
-    cfg = reduced(get_config(arch))
-    params = M.init_params(cfg, 0, "cpu").tree
-    batch = {k: torch.from_numpy(v) for k, v in _plan_inputs(cfg, 2, 20, 3).items()}
-    with pytest.raises(NotImplementedError, match="training slice"):
-        M.loss_fn(params, cfg, batch)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        TS.make_train_step(cfg, adamw.OptConfig())
-    with pytest.raises(NotImplementedError, match="training slice"):
-        T.main(["--arch", arch, "--reduced", "--device", "cpu", "--steps", "1",
-                "--ckpt-dir", str(tmp_path)])
+    kw = {"capacity_factor": 4.0} if get_config(arch).num_experts else {}
+    cfg = reduced(get_config(arch)).replace(**kw)
+    cfg_j = jax_reduced(jax_get_config(arch)).replace(**kw)
+    monkeypatch.setattr(T, "reduce_cfg", lambda c: reduced(c).replace(**kw))
+    oc = adamw.OptConfig(lr=3e-4, warmup_steps=10, decay_steps=2)      # as the CLI's
+    state = TS.init_train_state(cfg, oc, 0, "cpu")
+    batch = SyntheticTokens(cfg, 2, 32, seed=0).batch_at(0)
+    want, _ = JM.loss_fn(jax.tree_util.tree_map(lambda t: jnp.asarray(t.numpy()),
+                                                state["params"]), cfg_j,
+                         {k: jnp.asarray(v) for k, v in batch.items()}, moe_groups=1,
+                         impl="xla")
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with torch.no_grad():
+        loss, mets = M.loss_fn(state["params"], cfg, tbatch, moe_groups=1)
+    np.testing.assert_allclose(float(loss), float(want), rtol=1e-5)
+    assert ("mtp_ce" in mets) == bool(cfg.mtp_depth)
+    _, om = TS.make_train_step(cfg, oc)(state, tbatch)
+    np.testing.assert_allclose(float(om["loss"]), float(want), rtol=1e-5)
+    out = tmp_path / "m.json"
+    assert T.main(["--arch", arch, "--reduced", "--device", "cpu", "--steps", "1",
+                   "--batch", "2", "--seq", "32", "--ckpt-dir", str(tmp_path / "ckpt"),
+                   "--metrics-out", str(out)]) == 0
+    np.testing.assert_allclose(json.loads(out.read_text())["steps"][0]["loss"], float(want),
+                               rtol=1e-5)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "granite-8b"])
