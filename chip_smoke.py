@@ -49,8 +49,9 @@ Phases, in order; any failure exits non-zero:
    prefill and over decode steps at the serve phases' shapes, per arch; for
    the MoE models also the device time of routing, slot assignment,
    dispatch, the experts' products and combine, apart;
-6. train state: the full-width qwen2-0.5b train state (params, AdamW m and v:
-   5.93 GB) after one step, fingerprinted whole on the card and held against
+6. train state: the qwen2-0.5b train state at full width and 8 of 24 layers
+   (params, AdamW m and v: 3.07 GB) after one step, fingerprinted whole on
+   the card and held against
    the plain version and the host's fingerprints, with the tree call timed;
    one profiled train step; the same state saved twice with device
    fingerprints (the second save must copy no byte) and once on the host path;
@@ -89,9 +90,26 @@ Phases, in order; any failure exits non-zero:
    with the MTP loss, flash 2 a step at (192, 128); (c) the reference's C/R
    cycle for granite-moe at full width and 1 layer: one step, a
    device-fingerprint save and commit, a restore through a fresh manager,
-   and the next step on the continuing and the restored state, bit-equal.
+   and the next step on the continuing and the restored state, bit-equal;
+12. parallelism: (a) the card's mesh (``launch.mesh.make_host_mesh``) is
+   (1, 1) with no process group, and the mesh rules replicate every leaf of
+   full-width qwen2-0.5b's, granite-moe-3b-a800m's and deepseek-v3-671b's
+   train state, cache and batch (one batch shard: MoE routes with one
+   group; on a mesh of one rank this holds by construction); phases 3-11
+   run through those rules and ``place_tree`` as they are; (b)
+   ``ops.attention(impl="ring")`` at qwen2's prefill shape: a ring over a
+   "model" axis of one rank is attention, so under the (1, 1) mesh context,
+   as with no mesh, it launches ``flash`` once and returns flash's output,
+   within 5e-2 (bfloat16) of the plain version, with both device times; (c) the reference's elastic scenario (tests/test_elastic.py,
+   reduced llama3.2-1b) across the card: two CPU ranks over gloo at mesh
+   (2, 1) train three steps and save, then restore the save at (2, 1) and at
+   (1, 2) and take step 4; the card restores it and takes step 4 too; every
+   step-4 loss within 5e-4 of the (2, 1) restore's, and the card's re-save
+   of the restored state keeps the CPU save's chunk hashes bit for bit.
 
-The C/R loops of phases 7, 9 and 10(b) run ``repro_torch.launch.train.main``
+Phase 12's two CPU ranks run ``chip_smoke.py --gloo-child RANK WORLD STORE
+WORK``, with no card, meet through a ``FileStore``, and start with phase 11(b).  The C/R loops
+of phases 7, 9 and 10(b) run ``repro_torch.launch.train.main``
 in a child process of this script (``chip_smoke.py --train-child ARCH LAYERS
 ARGS``), which cuts the config's depth to LAYERS first; full-depth training
 is phase 10(a) and 11, in process and without saves (11(c): one save of a
@@ -195,6 +213,10 @@ TRAIN_ARGV = ["--batch", "8", "--seq", "128", "--steps", str(TRAIN_STEPS), "--ck
 # qwen2-0.5b 4 of 24 layers (phases 7, 9: 8 until phase 11 came), zamba2-1.2b
 # 6 of 38 (phase 10(b): one shared-attention group); full width both
 TRAIN_LAYERS = {"qwen2-0.5b": 4, "zamba2-1.2b": 6}
+# phase 6's train state: qwen2-0.5b at full width and 8 of 24 layers (3.07 GB,
+# still past 2^31 bytes; full depth, 5.93 GB, until phase 12 came: its first
+# save's write took 28 s of a run that passed 800 s)
+STATE_LAYERS = 8
 # kernel launches of one train step (one forward; the backwards launch none)
 STEP_LAUNCHES = {"qwen2-0.5b": {"flash": 4},
                  "zamba2-1.2b": {"flash": 1, "ssd": 6},
@@ -217,7 +239,17 @@ MOE_CR_LAYERS = 1
 # about 8 GB on disk at a time (phase 9: two saves of the 2.35 GB state and
 # a promoted copy); the saves write ~36 GB over the script
 TRAIN_DISK_BYTES = 20e9
+# phase 12: the full-width trees whose every leaf must resolve to replicated on
+# the card's (1, 1) mesh, and the elastic scenario of the reference's
+# tests/test_elastic.py (reduced llama3.2-1b, B8 S32 from seed 5, three steps,
+# a save, step 4 on each restore), on two CPU ranks over gloo and on the card
+PARALLEL_ARCHS = ("qwen2-0.5b", "granite-moe-3b-a800m", "deepseek-v3-671b")
+ELASTIC_ARCH = "llama3.2-1b"
+ELASTIC_OPT = {"warmup_steps": 2, "decay_steps": 10}
+# the reference's limit on a step-4 loss under another mesh (reductions reassociate)
+ELASTIC_TOL = 5e-4
 # deadlines of the child processes, about 3x their wall time on a slow disk
+GLOO_DEADLINE_S = 150
 TRAIN_RUN_DEADLINE_S = 300
 FOLLOW_DEADLINE_S = 300
 SCHED_DEADLINE_S = 450
@@ -1291,9 +1323,10 @@ def fp_launches_per_save(named, chunk_bytes: int) -> int:
 
 
 def phase_state(work: Path) -> dict:
-    """The full-width train state on the card after one step: fingerprinted
-    whole (kernel against the plain version and the host), one profiled
-    step, and saved twice with device fingerprints and once on the host path."""
+    """The full-width train state (STATE_LAYERS layers) on the card after one
+    step: fingerprinted whole (kernel against the plain version and the
+    host), one profiled step, and saved twice with device fingerprints and
+    once on the host path."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -1310,7 +1343,7 @@ def phase_state(work: Path) -> dict:
     from repro_torch.train import step as TS
     from repro_torch.utils.tree import flatten_with_names
 
-    cfg = get_config("qwen2-0.5b")
+    cfg = get_config("qwen2-0.5b").replace(num_layers=STATE_LAYERS)
     oc = adamw.OptConfig(warmup_steps=10, decay_steps=TRAIN_STEPS)
     t0 = time.perf_counter()
     state = TS.init_train_state(cfg, oc, 0, "cuda")
@@ -2037,8 +2070,10 @@ def phase_cr_in_process(work: Path, arch: str, layers: int) -> dict:
     from repro_torch.data.pipeline import SyntheticTokens
     from repro_torch.kernels import checksum as CK
     from repro_torch.kernels import flash_attention
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.train import _deterministic
     from repro_torch.optim import adamw
+    from repro_torch.parallel.mesh_rules import Rules
     from repro_torch.train import step as TS
     from repro_torch.utils.tree import flatten_with_names
 
@@ -2074,7 +2109,8 @@ def phase_cr_in_process(work: Path, arch: str, layers: int) -> dict:
         fresh = CheckpointManager(TieredStore(work / "cr11"), CheckpointPolicy(delta=True))
         host, _ = fresh.restore(TS.abstract_train_state(cfg, oc))
         fresh.close()
-        restored = place_tree(host, torch.device("cuda"))
+        restored = place_tree(host, TS.state_logical_axes(cfg), Rules(make_host_mesh("cuda")),
+                              "cuda")
         torch.cuda.synchronize()
         restore_s = time.perf_counter() - t0
         del host
@@ -2115,6 +2151,289 @@ def phase_cr_in_process(work: Path, arch: str, layers: int) -> dict:
             "fp_per_save": want_fp, "stall_s": d.get("stall_s"), "save_s": save_s,
             "restore_s": restore_s, "state_bytes": nbytes,
             "saved_bytes": d.get("bytes_written") or 0}
+
+
+# ----------------------------------------------------------------------------------
+# phase 12: parallelism (the mesh rules, the ring, the elastic MxN restore)
+# ----------------------------------------------------------------------------------
+
+
+def _elastic_setup():
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.optim import adamw
+
+    return reduced(get_config(ELASTIC_ARCH)), adamw.OptConfig(**ELASTIC_OPT)
+
+
+def _chunk_hashes(root: Path, step: int) -> dict:
+    from repro_torch.checkpoint.manager import CheckpointManager, CheckpointPolicy
+    from repro_torch.checkpoint.store import TieredStore
+
+    mgr = CheckpointManager(TieredStore(root), CheckpointPolicy(delta=True))
+    man = mgr.read_manifest(step)
+    mgr.close()
+    return {e["path"]: [c["hash"] for c in e["chunks"]] for e in man["leaves"]}
+
+
+def _elastic_restore(root: Path, rules, device: str):
+    """The saved state of the elastic scenario, laid out for ``rules``' mesh."""
+    from repro_torch.checkpoint.manager import CheckpointManager, CheckpointPolicy
+    from repro_torch.checkpoint.store import TieredStore
+    from repro_torch.core.virtualization import place_tree
+    from repro_torch.train import step as TS
+
+    cfg, oc = _elastic_setup()
+    mgr = CheckpointManager(TieredStore(root), CheckpointPolicy(delta=True))
+    host, _ = mgr.restore(TS.abstract_train_state(cfg, oc), promote=False)
+    mgr.close()
+    return place_tree(host, TS.state_logical_axes(cfg), rules, device)
+
+
+def _elastic_save(root: Path, state, rank: int) -> None:
+    """Gathers ``state`` (every rank) and saves it as step 2 (rank 0)."""
+    from repro_torch.checkpoint.manager import CheckpointManager, CheckpointPolicy
+    from repro_torch.checkpoint.store import TieredStore
+    from repro_torch.core.virtualization import fetch_tree
+
+    host = fetch_tree(state)
+    if rank == 0:
+        mgr = CheckpointManager(TieredStore(root), CheckpointPolicy(delta=True))
+        mgr.save(2, host)
+        mgr.commit(2)
+        mgr.close()
+
+
+def gloo_child(argv: list) -> int:
+    """``chip_smoke.py --gloo-child RANK WORLD STORE WORK``: one CPU rank of
+    phase 12(c), joined to the other over gloo (a ``FileStore``): three steps
+    of the elastic scenario from seed 3 at mesh (2, 1) and a save; then, in
+    each of the meshes (2, 1) and (1, 2) over the same two ranks, a restore
+    of that save and step 4.  Rank 0 prints the losses as JSON."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    rank, world, store, work = int(argv[0]), int(argv[1]), argv[2], Path(argv[3])
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=60))
+    try:
+        from repro_torch.core.virtualization import fetch_tree, place_tree
+        from repro_torch.data.pipeline import SyntheticTokens
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.parallel.mesh_rules import Rules
+        from repro_torch.train import step as TS
+        from repro_torch.utils.tree import flatten_with_names
+
+        cfg, oc = _elastic_setup()
+        pipe = SyntheticTokens(cfg, 8, 32, seed=5)
+
+        def batch(b):
+            return {k: torch.from_numpy(v) for k, v in b.items()}
+
+        t0 = time.perf_counter()
+        mesh = make_mesh((2, 1))
+        rules = Rules(mesh)
+        step = TS.make_train_step(cfg, oc, rules=rules)
+        state = place_tree(fetch_tree(TS.init_train_state(cfg, oc, 3, "cpu")),
+                           TS.state_logical_axes(cfg), rules, "cpu")
+        rep: dict = {"losses": [], "step4": {}}
+        for _ in range(3):
+            state, m = step(state, batch(next(pipe)))
+            rep["losses"].append(float(m["loss"]))
+        rep["split_leaves"] = sum(hasattr(x, "to_local") for _, x in flatten_with_names(state))
+        _elastic_save(work / "cpu-save", state, rank)
+        dist.barrier()
+        del state
+        for shape in ((2, 1), (1, 2)):
+            mesh = make_mesh(shape)
+            rules = Rules(mesh)
+            state = _elastic_restore(work / "cpu-save", rules, "cpu")
+            state, m = TS.make_train_step(cfg, oc, rules=rules)(state, batch(pipe.batch_at(3)))
+            rep["step4"][str(shape)] = float(m["loss"])
+        rep["s"] = time.perf_counter() - t0
+        if rank == 0:
+            print(json.dumps(rep), flush=True)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+class _GlooGroup:
+    """The two CPU ranks of ``gloo_child``, started together, with no card."""
+
+    def __init__(self, work: Path):
+        env = {**_child_env(), "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "2"}
+        self.logs = [work / f"gloo-rank{r}.log" for r in range(2)]
+        self.procs = []
+        for r, path in enumerate(self.logs):
+            with open(path, "w") as out:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"), "--gloo-child", str(r), "2",
+                     str(work / "gloo-store"), str(work)],
+                    env=env, stdout=out, stderr=subprocess.STDOUT))
+        self.started = time.perf_counter()
+        self.deadline = time.monotonic() + GLOO_DEADLINE_S
+
+    def kill(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    def wait(self) -> dict:
+        try:
+            for p in self.procs:
+                p.wait(timeout=max(self.deadline - time.monotonic(), 1))
+        except subprocess.TimeoutExpired:
+            self.kill()
+        texts = [path.read_text() for path in self.logs]
+        if any(p.returncode for p in self.procs):
+            raise AssertionError(f"the gloo ranks exited {[p.returncode for p in self.procs]}:"
+                                 "\n" + "\n".join(_tail(t) for t in texts))
+        return json.loads([ln for ln in texts[0].splitlines() if ln.startswith("{")][-1])
+
+
+def phase_parallel(work: Path, ranks: "_GlooGroup") -> dict:
+    """(a) the card's mesh is (1, 1), with no process group, and the rules
+    replicate every leaf of three full-width models' trees (structural on a
+    mesh of one rank: the CPU tests hold the rules to the reference's at
+    meshes of several); (b) ``impl="ring"`` at qwen2's prefill shape: a ring
+    of one rank is attention, so under the (1, 1) mesh context, as without a
+    mesh, it launches ``flash`` once and returns flash's output, within the
+    bf16 tolerance of the plain version; (c) the elastic
+    scenario across the card: two CPU ranks (``ranks``, started earlier) at
+    (2, 1) train and save, the card restores it and takes step 4, the ranks
+    at (2, 1) and at (1, 2) do too; every step-4 loss within ELASTIC_TOL of
+    the (2, 1) ranks' own, and the card's re-save of the restored state
+    keeps the CPU save's chunk hashes."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import flash_attention, ops, ref
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.context import use_mesh_context
+    from repro_torch.parallel.mesh_rules import Rules, batch_logical_axes, named_axes
+    from repro_torch.train import step as TS
+    from repro_torch.utils.tree import flatten_with_names
+
+    # ---- (a) the rules on the card's mesh ---------------------------------
+    mesh = make_host_mesh("cuda")
+    rules = Rules(mesh)
+    if mesh.shape != (1, 1) or mesh.device_mesh is not None or dist.is_initialized():
+        raise AssertionError(f"the card's mesh is {mesh}, process group "
+                             f"{dist.is_initialized()}")
+    leaves = 0
+    for arch in PARALLEL_ARCHS:
+        cfg = get_config(arch)
+        trees = [(TS.state_logical_axes(cfg),
+                  [(n, tuple(x.shape)) for n, x in
+                   flatten_with_names(TS.abstract_train_state(cfg, adamw.OptConfig()))]),
+                 (M.cache_logical_axes(cfg, 4, 1024),
+                  [(n, s) for n, (s, _) in flatten_cache(M.cache_specs(cfg, 4, 1024))])]
+        tokens = {"tokens": torch.empty((8, 128), device="meta")}
+        trees.append((batch_logical_axes(tokens), [("tokens", (8, 128))]))
+        for axes_tree, named in trees:
+            ax = dict(named_axes(axes_tree))
+            split = [n for n, shp in named if not rules.is_replicated(ax[n], shp)]
+            if split:
+                raise AssertionError(f"{arch}: leaves split on the card's mesh: {split[:5]}")
+            leaves += len(named)
+    groups = rules.axis_group_size("batch")
+    log(f"  (a) mesh {mesh}, no process group; {leaves} leaves of {', '.join(PARALLEL_ARCHS)} "
+        f"(train state, cache B4 S1024, batch) replicated; batch shards {groups}")
+    if groups != 1:
+        raise AssertionError(f"batch shards {groups} on one card")
+
+    # ---- (b) the ring at qwen2-0.5b's prefill shape -----------------------
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    B, S, H, Hkv, D = 4, 512, 14, 2, 64
+    sets = copies_past_l2([_randn(s, torch.bfloat16, gen)
+                           for s in ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D))])
+    q, k, v = sets[0]
+
+    def ring(q, k, v):
+        with use_mesh_context(mesh, rules):
+            return ops.attention(q, k, v, impl="ring")
+
+    def flash(q, k, v):
+        return flash_attention.flash(q, k, v, causal=True)
+
+    plain = ref.attention(q.float(), k.float(), v.float(), causal=True)
+    got_flash = flash(q, k, v)
+    flash_attention.launches = 0
+    got_ring = ring(q, k, v)
+    ring_launches = flash_attention.launches
+    flash_attention.launches = 0
+    no_mesh = ops.attention(q, k, v, impl="ring")
+    ring_fallthrough = flash_attention.launches
+    torch.cuda.synchronize()
+    err_plain = float((got_ring.float() - plain).abs().max())
+    is_flash = torch.equal(got_ring, got_flash) and torch.equal(no_mesh, got_flash)
+    ring_ms, flash_ms = device_ms(ring, sets), device_ms(flash, sets)
+    log(f"  (b) impl='ring' B{B} S{S} H{H} Hkv{Hkv} D{D} bfloat16 causal under the (1, 1) "
+        f"mesh: flash launches {ring_launches} (expected 1), max_abs_err {err_plain:.3g} "
+        f"against the plain version (tol {TOL['bfloat16']}); with no mesh: flash launches "
+        f"{ring_fallthrough} (expected 1); both outputs flash's: {is_flash}; device ms "
+        f"ring {fmt(ring_ms)}, flash {fmt(flash_ms)}")
+    if not (err_plain <= TOL["bfloat16"] and bool(torch.isfinite(got_ring).all())):
+        raise AssertionError(f"impl='ring' disagrees with the plain version: {err_plain}")
+    if ring_launches != 1 or ring_fallthrough != 1 or not is_flash:
+        raise AssertionError(f"impl='ring' launched flash {ring_launches} times under the "
+                             f"(1, 1) mesh and {ring_fallthrough} without one")
+    del sets, q, k, v, plain, got_ring, got_flash, no_mesh
+
+    # ---- (c) the elastic scenario across the card ---------------------------
+    cpu = ranks.wait()
+    ranks_s = time.perf_counter() - ranks.started
+    base, other = cpu["step4"]["(2, 1)"], cpu["step4"]["(1, 2)"]
+    t0 = time.perf_counter()
+    state = _elastic_restore(work / "cpu-save", rules, "cuda")
+    restore_s = time.perf_counter() - t0
+    _elastic_save(work / "card-resave", state, 0)
+    same_hashes = _chunk_hashes(work / "card-resave", 2) == _chunk_hashes(work / "cpu-save", 2)
+    cfg, oc = _elastic_setup()
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in SyntheticTokens(cfg, 8, 32, seed=5).batch_at(3).items()}
+    flash_attention.launches = 0
+    state, m = TS.make_train_step(cfg, oc, rules=rules)(state, batch)
+    card4 = float(m["loss"])
+    card_flash = flash_attention.launches
+    on_card = all(x.is_cuda for _, x in flatten_with_names(state))
+    log(f"  (c) {ELASTIC_ARCH} reduced, B8 S32: two CPU ranks at (2, 1) train {cpu['losses']} "
+        f"({cpu['split_leaves']} leaves split) and save, then restore at (2, 1) and (1, 2) "
+        f"[{cpu['s']:.1f}s from their mesh to their last step; started with phase 11(b), "
+        f"done {ranks_s:.1f}s later]; "
+        f"step-4 loss at (2, 1) {base!r}, at (1, 2) {other!r}, on the card {card4!r} (restore "
+        f"{restore_s:.2f}s, flash launches {card_flash}; tol {ELASTIC_TOL}); the card's "
+        f"re-save keeps the CPU save's chunk hashes: {same_hashes}")
+    if not same_hashes:
+        raise AssertionError("the card's re-save of the restored state changed its chunks")
+    if not on_card or abs(card4 - base) > ELASTIC_TOL or abs(other - base) > ELASTIC_TOL:
+        raise AssertionError(f"step 4 differs across meshes: {cpu['step4']}, card {card4}")
+    if card_flash != cfg.num_layers or not math.isfinite(card4):
+        raise AssertionError(f"the card's step launched flash {card_flash} times")
+    del state
+    return {"ring_ms": ring_ms, "flash_ms": flash_ms, "ring_err": err_plain,
+            "step4": {**cpu["step4"], "card": card4}, "losses": cpu["losses"],
+            "card_flash": card_flash, "ring_fallthrough": ring_fallthrough,
+            "ring_launches": ring_launches}
+
+
+def flatten_cache(specs, path=()):
+    """(path, (shape, dtype)) of a ``models.model.cache_specs`` tree."""
+    for k in sorted(specs):
+        v = specs[k]
+        if isinstance(v, dict):
+            yield from flatten_cache(v, path + (k,))
+        else:
+            yield "/".join(path + (k,)), v
 
 
 def main() -> int:
@@ -2171,8 +2490,10 @@ def main() -> int:
                  "llava-next-mistral-7b"):
         phase_reference_train(arch)
     work = _work_dir()
+    ranks = None
     try:
-        phase("phase 6 the full-width train state: fingerprints, a profiled step, saves")
+        phase(f"phase 6 the full-width train state ({STATE_LAYERS} layers): fingerprints, a "
+              "profiled step, saves")
         state_rep = phase_state(work)
         phase(f"phase 7 train qwen2-0.5b at full width and {TRAIN_LAYERS['qwen2-0.5b']} layers "
               "through the C/R loop (--ckpt-delta --ckpt-device-fp): A, B preempted, C requeued")
@@ -2190,6 +2511,9 @@ def main() -> int:
               f"{TRAIN_LAYERS['zamba2-1.2b']} layers through the C/R loop: A, B preempted, "
               "C requeued")
         ssm_rep = phase_train(work, "zamba2-1.2b")
+        # phase 12(c)'s two CPU ranks (mostly ``import torch``, then a few
+        # small steps) run beside 11(b), whose step keeps the card busy
+        ranks = _GlooGroup(work)
         phase("phase 11(b) train deepseek-v3-671b at full width: one dense layer, an empty "
               "MoE segment and the MTP block, in process")
         mla_rep = phase_train_full("deepseek-v3-671b",
@@ -2199,8 +2523,13 @@ def main() -> int:
               f"{MOE_CR_LAYERS} of 32 layers, in process: step, device-fp save, restore, "
               "next step")
         cr_rep = phase_cr_in_process(work, "granite-moe-3b-a800m", MOE_CR_LAYERS)
+        phase("phase 12 parallelism: the card's mesh and rules, the ring, the elastic restore "
+              "across CPU ranks and the card")
+        phase_parallel(work, ranks)
         phase("done")
     finally:
+        if ranks is not None:
+            ranks.kill()
         shutil.rmtree(work, ignore_errors=True)
 
     # launches over every main-path run of this script: the six serve runs,
@@ -2265,4 +2594,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--train-child"]:
         sys.exit(train_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--gloo-child"]:
+        sys.exit(gloo_child(sys.argv[2:]))
     sys.exit(main())

@@ -4,7 +4,7 @@ One object owns: the checkpoint manager (storage), the coordinator client (or
 inline coordinator), the signal trap, and the walltime tracker.  The training
 loop touches three methods:
 
-    state, data_state, start_step = crm.restore_or_init(init_fn)
+    state, data_state, start_step = crm.restore_or_init(init_fn, templates, axes)
     for step in range(start_step, total):
         state = train_step(state, batch)
         action = crm.step_boundary(step, state_snapshot_fn, data_state_fn)
@@ -36,7 +36,7 @@ class CRManager:
                  requeue_file: Optional[RequeueFile] = None,
                  interval_steps: Optional[int] = None,
                  predump: bool = False, predump_lead: int = 1,
-                 cfg=None, device="cpu", node: Optional[str] = None,
+                 rules, cfg=None, device="cpu", node: Optional[str] = None,
                  peers: Optional[dict] = None,
                  log: Callable[[str], None] = print):
         self.ckpt = ckpt
@@ -60,8 +60,9 @@ class CRManager:
         self.requeue_file = requeue_file
         self.interval_steps = interval_steps
         self.cfg = cfg
-        # the device the train state lives on: a restore places it there
-        # (the reference re-derives a sharding per leaf from its mesh rules)
+        # a restore lays the state out for the mesh of ``rules`` (its logical
+        # axes given) on ``device``, the device the train state lives on
+        self.rules = rules
         self.device = device
         self.log = log
         self.events: list[dict] = []
@@ -71,9 +72,10 @@ class CRManager:
         self._restored_meta: Optional[dict] = None
 
     # ------------------------------------------------------------------
-    def restore_or_init(self, init_fn, templates: dict):
-        """templates: {"state": template tree (meta tensors do)}.  Returns
-        (device_state, manifest_meta|None, start_step)."""
+    def restore_or_init(self, init_fn, templates: dict, axes: dict):
+        """templates: {"state": template tree (meta tensors do)}; axes:
+        {"state": its logical-axes tree}.  Returns (device_state,
+        manifest_meta|None, start_step)."""
         try:
             host_state, manifest = self.ckpt.restore(templates["state"])
         except FileNotFoundError:
@@ -92,7 +94,7 @@ class CRManager:
         if meta.get("run_manifest"):
             verify_manifest(meta["run_manifest"], cfg=self.cfg, log=self.log,
                             device=self.device)
-        state = place_tree(host_state, self.device)
+        state = place_tree(host_state, axes["state"], self.rules, self.device)
         start_step = int(meta.get("next_step", manifest["step"] + 1))
         self._restored_meta = meta
         self.log(f"[cr] restored checkpoint step={manifest['step']} "

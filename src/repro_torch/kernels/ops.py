@@ -7,10 +7,19 @@ tensor goes to the plain version in ``ref`` (each wrapper makes that
 choice).  ``impl`` keeps the reference
 package's names:
 
-  auto, pallas       the kernel on CUDA, the plain version on the CPU
+  auto, pallas       the kernel on CUDA, the plain version on the CPU; on the
+                     CPU a causal prefill longer than 2048 tokens takes the
+                     blockwise path (``xla_attention.causal_blockwise``)
   xla, xla_chunked,  the plain version, and only on the CPU: asking for it
   ref                on a CUDA tensor raises, so nothing on the card's path
-                     quietly skips its kernel
+                     quietly skips its kernel; ``xla_chunked`` attention is
+                     the blockwise path
+  ring               attention of a prefill or a training step as a ring over
+                     the ambient mesh's "model" axis where that axis holds
+                     more than one rank (``ring_attention``, the reference's
+                     non-Pallas path); a ring of one rank is attention, so
+                     there (the card's (1, 1) mesh), with no mesh in context,
+                     on a decode step, and for every other op: ``auto``
 """
 from __future__ import annotations
 
@@ -21,9 +30,13 @@ from repro_torch.kernels import checksum as CK
 from repro_torch.kernels import decode_attention, flash_attention
 from repro_torch.kernels import ssd as SSD
 from repro_torch.kernels import wkv6 as WKV
+from repro_torch.kernels.ring_attention import ring_attention
+from repro_torch.kernels.xla_attention import causal_blockwise
+from repro_torch.parallel.context import current_mesh
 
-KERNEL_IMPLS = ("auto", "pallas")
+KERNEL_IMPLS = ("auto", "pallas", "ring")
 PLAIN_IMPLS = ("xla", "xla_chunked", "ref")
+_NAIVE_MAX_SEQ = 2048
 
 
 def _resolve(impl, device: torch.device, what: str) -> str:
@@ -40,12 +53,21 @@ def _resolve(impl, device: torch.device, what: str) -> str:
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, kv_len=None, impl: str = "auto",
               decode: bool = False, scale=None) -> torch.Tensor:
-    _resolve(impl, q.device, "attention")
+    impl = _resolve(impl, q.device, "attention")
+    Sq = q.shape[1]
+    one_token = decode or Sq == 1
+    if impl == "ring" and not one_token and kv_len is None:
+        mesh = current_mesh()
+        if mesh is not None and dict(zip(mesh.axis_names, mesh.shape)).get("model", 1) > 1:
+            return ring_attention(q, k, v, mesh=mesh, scale=scale, causal=causal)
     # each wrapper takes the plain version for CPU tensors, the kernel for CUDA
-    if decode or q.shape[1] == 1:
+    if one_token:
         return decode_attention.flash_decode(q, k, v, kv_len=kv_len, scale=scale)
     if kv_len is not None:
         raise ValueError("flash takes no kv_len; a prefill attends to its whole input")
+    if q.device.type == "cpu" and causal and (
+            impl == "xla_chunked" or (impl in ("auto", "ring") and Sq > _NAIVE_MAX_SEQ)):
+        return causal_blockwise(q, k, v, scale=scale)
     return flash_attention.flash(q, k, v, causal=causal, scale=scale)
 
 

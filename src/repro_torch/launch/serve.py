@@ -42,7 +42,9 @@ from repro_torch.checkpoint.manager import CheckpointManager, CheckpointPolicy
 from repro_torch.checkpoint.store import TieredStore, node_local_tier_roots
 from repro_torch.configs.base import ModelConfig, cut_depth, get_config, reduced as reduce_cfg
 from repro_torch.kernels import decode_attention, flash_attention
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import model as M
+from repro_torch.parallel.mesh_rules import Rules
 from repro_torch.sched.cache_registry import REGISTRY_DIRNAME, CacheRegistry
 from repro_torch.serve.engine import Engine
 from repro_torch.serve.weight_sync import ParamHandle, WeightSyncClient
@@ -200,7 +202,7 @@ def open_follower(args: argparse.Namespace) -> Optional[Follower]:
                               to_native=to_native, on_stale=args.on_stale,
                               pipeline_uploads=args.pipeline_uploads)
     eng = Engine(cfg, handle, batch=args.batch, max_seq=args.max_seq,
-                 sync_client=client)
+                 sync_client=client, rules=Rules(make_host_mesh(device)))
     return Follower(cfg, device, mgr, client, eng, manifest, restore_s)
 
 
@@ -279,9 +281,10 @@ def run(args: argparse.Namespace, model: Optional[M.LM] = None) -> dict:
                          f"--num-layers name ({cfg.name}, {cfg.num_layers} layers)")
     rng = np.random.default_rng(args.seed)
     prompts = synthetic_prompts(cfg, rng, args.batch, args.prompt_len, device)
+    rules = Rules(make_host_mesh(device))
 
     def fresh():
-        return Engine(cfg, model, batch=args.batch, max_seq=args.max_seq)
+        return Engine(cfg, model, batch=args.batch, max_seq=args.max_seq, rules=rules)
 
     report: dict = {"device": str(device), "match": None}
     # reference (no migration)

@@ -19,6 +19,10 @@ Behaviour:
   * optionally attaches to an external checkpoint coordinator
     (--coordinator host:port --worker-id N) for multi-worker rounds.
 
+It builds ``launch.mesh.make_host_mesh()`` and ``Rules(mesh)`` and hands them
+to the train step and to the restore's placement, as the reference's does;
+one rank runs it (multi-rank launching is not ported), so the mesh is (1, 1).
+
 Runs on the GPU unless ``--device cpu`` is given; with no GPU and no
 ``--device cpu`` it fails.  Bit-identical resume on the card needs
 deterministic kernels: ``CUBLAS_WORKSPACE_CONFIG`` is set before torch is
@@ -56,8 +60,10 @@ from repro_torch.kernels import checksum as CK  # noqa: E402
 from repro_torch.kernels import flash_attention  # noqa: E402
 from repro_torch.kernels import ssd as SSD  # noqa: E402
 from repro_torch.kernels import wkv6 as WKV  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch.serve import resolve_device  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.parallel.mesh_rules import Rules  # noqa: E402
 from repro_torch.sched.cache_registry import (ENV_PEER_ROOTS, REGISTRY_DIRNAME,  # noqa: E402
                                               CacheRegistry, parse_peer_roots)
 from repro_torch.train import step as TS  # noqa: E402
@@ -218,7 +224,9 @@ def _run(args, device: torch.device, trap: SignalTrap) -> int:
     if args.reduced:
         cfg = reduce_cfg(cfg)
     oc = adamw.OptConfig(lr=args.lr, warmup_steps=10, decay_steps=max(args.steps, 2))
-    train_step = TS.make_train_step(cfg, oc, microbatches=args.microbatches)
+
+    rules = Rules(make_host_mesh(device))
+    train_step = TS.make_train_step(cfg, oc, rules=rules, microbatches=args.microbatches)
 
     # multi-node placement: the shared tier lives under --ckpt-dir for every
     # node; the node-LOCAL tiers mount under the root the scheduler handed us,
@@ -281,16 +289,18 @@ def _run(args, device: torch.device, trap: SignalTrap) -> int:
                     interval_steps=args.interval_steps or None,
                     predump=args.ckpt_predump,
                     predump_lead=args.ckpt_predump_lead,
-                    cfg=cfg, device=device, node=node,
+                    cfg=cfg, rules=rules, device=device, node=node,
                     peers=peers or None)
 
     def init_fn():
         return TS.init_train_state(cfg, oc, args.seed, device)
 
-    # template for restore: the state's tree as meta tensors
+    # template for restore: the state's tree as meta tensors (host arrays are
+    # laid out for the mesh by their logical axes)
     templates = {"state": TS.abstract_train_state(cfg, oc)}
+    axes = {"state": TS.state_logical_axes(cfg)}
     t0 = _synced(device)
-    state, meta, start_step = crm.restore_or_init(init_fn, templates)
+    state, meta, start_step = crm.restore_or_init(init_fn, templates, axes)
     restore_s = _synced(device) - t0
     if meta is not None and "data_state" in meta:
         pipe.restore(PipelineState.from_dict(meta["data_state"]))

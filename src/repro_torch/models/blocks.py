@@ -67,43 +67,46 @@ def stacked(specs, n: int):
 
 
 def cache_entry_spec(cfg: ModelConfig, kind: str, batch: int, max_seq: int) -> dict:
-    """{name: (shape, dtype string) | nested dict} of one layer's cache entry."""
+    """{name: (shape, dtype string, logical axes) | nested dict} of one
+    layer's cache entry."""
     dt = cfg.compute_dtype
     kv = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    kvax = ("batch", "cache_seq", "kv_heads_dim", None)
     if kind in ("attn_dense", "attn_moe"):
-        return {"k": (kv, dt), "v": (kv, dt)}
+        return {"k": (kv, dt, kvax), "v": (kv, dt, kvax)}
     if kind in ("mla_dense", "mla_moe"):
-        return {"ckv": ((batch, max_seq, cfg.mla_cache_dim), dt)}
+        return {"ckv": ((batch, max_seq, cfg.mla_cache_dim), dt, ("batch", "cache_seq", None))}
     if kind == "mamba2":
         E, N, H, P, W = S._dims(cfg)
-        return {"conv": ((batch, W - 1, E + 2 * N), dt),
-                "ssm": ((batch, H, P, N), "float32")}
+        return {"conv": ((batch, W - 1, E + 2 * N), dt, ("batch", None, "ssm_inner")),
+                "ssm": ((batch, H, P, N), "float32", ("batch", "ssm_heads_dim", None, None))}
     if kind == "rwkv6":
         D, H, Dh = R._dims(cfg)
-        return {"xt": ((batch, D), dt), "xc": ((batch, D), dt),
-                "wkv": ((batch, H, Dh, Dh), "float32")}
+        return {"xt": ((batch, D), dt, ("batch", None)), "xc": ((batch, D), dt, ("batch", None)),
+                "wkv": ((batch, H, Dh, Dh), "float32", ("batch", "ssm_heads_dim", None, None))}
     if kind != "zamba_group":
         raise ValueError(kind)
     inner = cfg.shared_attn_period
-    mamba = {k: ((inner,) + shp, d)
-             for k, (shp, d) in cache_entry_spec(cfg, "mamba2", batch, max_seq).items()}
-    return {"mamba": mamba, "shared_k": (kv, dt), "shared_v": (kv, dt)}
+    mamba = {k: ((inner,) + shp, d, ("layers",) + ax)
+             for k, (shp, d, ax) in cache_entry_spec(cfg, "mamba2", batch, max_seq).items()}
+    return {"mamba": mamba, "shared_k": (kv, dt, kvax), "shared_v": (kv, dt, kvax)}
 
 
 def _index(tree, i: int):
     return tree_map(lambda x: x[i], tree)
 
 
-def _ffn(kind, p, cfg: ModelConfig, xn, moe_groups: int, dt):
+def _ffn(kind, p, cfg: ModelConfig, xn, moe_groups: int, dt, batch_group=None):
     """The block's FFN: (out, the MoE aux loss or None)."""
     if kind.endswith("moe"):
-        return MOE.moe_ffn(p, cfg, xn, moe_groups)
+        return MOE.moe_ffn(p, cfg, xn, moe_groups, batch_group)
     return L.swiglu(p, xn, dt), None
 
 
 def block_full(kind, p, cfg: ModelConfig, h, positions, *, moe_groups=16,
-               want_cache=False, emb0=None, shared_p=None, impl=None):
-    """Returns (h, cache_entry | None, aux_loss | None)."""
+               want_cache=False, emb0=None, shared_p=None, impl=None, batch_group=None):
+    """Returns (h, cache_entry | None, aux_loss | None); ``batch_group``:
+    see ``moe.route``."""
     cache = aux = None
     dt = L.torch_dtype(cfg.compute_dtype)
     if kind in ATTN_KINDS:
@@ -116,7 +119,7 @@ def block_full(kind, p, cfg: ModelConfig, h, positions, *, moe_groups=16,
             cache = {"k": k, "v": v} if want_cache else None
         h = h + attn_out
         xn = L.rms_norm(p["ln2"], h, cfg.norm_eps)
-        ffn_out, aux = _ffn(kind, p["ffn"], cfg, xn, moe_groups, dt)
+        ffn_out, aux = _ffn(kind, p["ffn"], cfg, xn, moe_groups, dt, batch_group)
         return h + ffn_out, cache, aux
 
     if kind == "mamba2":

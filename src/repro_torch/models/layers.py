@@ -138,6 +138,11 @@ def abstract_params(specs, dtype=torch.float32):
         lambda _p, s: torch.empty(s.shape, dtype=dtype, device="meta"), specs)
 
 
+def logical_axes(specs):
+    """Spec tree -> tree of each leaf's logical axes (``parallel/mesh_rules``)."""
+    return tree_map_with_path(lambda _p, s: s.axes, specs)
+
+
 # ----------------------------------------------------------------------------------
 # Layers
 # ----------------------------------------------------------------------------------

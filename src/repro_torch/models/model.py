@@ -35,6 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as BL
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamSpec
+from repro_torch.parallel.collectives import group_sum
 from repro_torch.utils.tree import (flatten_with_names, tree_leaves, tree_map,
                                     unflatten_like)
 
@@ -190,6 +191,10 @@ def abstract_params(cfg: ModelConfig) -> dict:
     return L.abstract_params(param_specs(cfg), L.torch_dtype(cfg.param_dtype))
 
 
+def param_logical_axes(cfg: ModelConfig) -> dict:
+    return L.logical_axes(param_specs(cfg))
+
+
 def params_from_numpy(cfg: ModelConfig, tree: dict, device) -> LM:
     """The model whose parameters are ``tree`` (the reference package's
     ``init_params`` tree, or a restored checkpoint, as numpy arrays), on
@@ -254,9 +259,10 @@ def logits_fn(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 
 
 def forward_full(params, cfg: ModelConfig, batch: dict, *, want_cache=False,
-                 moe_groups=16, impl=None):
+                 moe_groups=16, impl=None, batch_group=None):
     """Returns (h_final, per-segment lists of per-layer cache entries | None,
-    the MoE aux loss summed over the layers)."""
+    the MoE aux loss summed over the layers; ``batch_group``: see
+    ``loss_fn``)."""
     tree = _tree(params)
     h = embed_inputs(tree, cfg, batch)
     B, S, _ = h.shape
@@ -270,7 +276,7 @@ def forward_full(params, cfg: ModelConfig, batch: dict, *, want_cache=False,
         for p in _layers(params, i, seg.count):
             h, c, a = BL.block_full(seg.kind, p, cfg, h, positions, moe_groups=moe_groups,
                                     want_cache=want_cache, emb0=emb0, shared_p=shared_p,
-                                    impl=impl)
+                                    impl=impl, batch_group=batch_group)
             if a is not None:
                 aux = aux + a
             entries.append(c)
@@ -343,7 +349,7 @@ def _shift_labels(cfg: ModelConfig, batch: dict):
     return labels, mask
 
 
-def _mtp_ce(params, cfg: ModelConfig, h, tokens, mask, impl):
+def _mtp_ce(params, cfg: ModelConfig, h, tokens, mask, impl, batch_group=None):
     """The MTP head's (ce_sum, n): position t predicts token t + 2 from the
     final hidden state at t and the embedding of token t + 1, through
     ``mtp/proj``, one dense block and ``mtp/norm``, scored by the head."""
@@ -360,12 +366,21 @@ def _mtp_ce(params, cfg: ModelConfig, h, tokens, mask, impl):
     labels = torch.cat([tokens[:, 2:], tokens[:, -2:]], dim=1)[:, :S1]
     mtp_mask = torch.ones((B, S1), dtype=torch.float32, device=x.device)
     mtp_mask[:, -2:] = 0.0
-    ce, _, n = chunked_ce(tree, cfg, x, labels, mtp_mask * mask[:, :S1])
-    return ce, n
+    mtp_mask = mtp_mask * mask[:, :S1]
+    ce, _, n = chunked_ce(tree, cfg, x, labels, mtp_mask)
+    return ce, _tokens(mtp_mask, n, batch_group)
+
+
+def _tokens(mask, n, batch_group):
+    """The scored tokens of the whole batch: ``n`` (``chunked_ce``'s count of
+    this rank's) where it holds all of it, else the ranks' counts summed."""
+    if batch_group is None:
+        return n
+    return torch.clamp(group_sum(torch.sum(mask), batch_group), min=1.0)
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict, *, moe_groups=16, impl=None,
-            z_loss: float = 1e-4):
+            z_loss: float = 1e-4, batch_group=None):
     """The reference's ``loss_fn``: next-token cross entropy (the K
     codebooks' mean with codebooks; no position before the last image
     token scored) plus ``z_loss`` x mean(logsumexp^2), the MoE aux loss
@@ -373,33 +388,55 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, *, moe_groups=16, impl=None,
     the MTP head's cross entropy.  ``moe_groups`` sets the routing groups
     (and with them each expert's capacity); the train step passes 1, as the
     reference's does on one device.  Returns (loss, {"ce", "aux", "tokens"}
-    and "mtp_ce" with an MTP head)."""
-    h, _, aux = forward_full(params, cfg, batch, moe_groups=moe_groups, impl=impl)
+    and "mtp_ce" with an MTP head).
+
+    ``batch_group``: the process group of the ranks that hold the other
+    slices of the batch (``None``: this rank holds all of it).  Then the
+    sums are over this rank's rows but the token counts over the whole
+    batch's, so the loss and every metric but ``tokens`` is this rank's
+    share: the shares sum over the group to the whole batch's value, and so
+    do their gradients."""
+    h, _, aux = forward_full(params, cfg, batch, moe_groups=moe_groups, impl=impl,
+                             batch_group=batch_group)
     labels, mask = _shift_labels(cfg, batch)
     ce, z, n = chunked_ce(params, cfg, h, labels, mask)
+    n = _tokens(mask, n, batch_group)
     loss = ce / n + z_loss * z / n + aux
     metrics = {"ce": ce / n, "aux": aux, "tokens": n}
     if cfg.mtp_depth and not cfg.num_codebooks:
-        ce2, n2 = _mtp_ce(params, cfg, h, batch["tokens"], mask, impl)
+        ce2, n2 = _mtp_ce(params, cfg, h, batch["tokens"], mask, impl, batch_group)
         loss = loss + 0.3 * ce2 / n2
         metrics["mtp_ce"] = ce2 / n2
     return loss, metrics
+
+
+def _cache_entries(cfg: ModelConfig, batch: int, max_seq: int, part) -> dict:
+    """The cache tree, each leaf ``part((shape, dtype, axes))`` of its
+    ``blocks.cache_entry_spec`` entry stacked on a leading layer dimension,
+    and ``t``."""
+    def expand(entry, count):
+        return {k: expand(v, count) if isinstance(v, dict)
+                else part(((count,) + v[0], v[1], ("layers",) + v[2]))
+                for k, v in entry.items()}
+
+    out: dict[str, Any] = {}
+    for i, seg in enumerate(layer_plan(cfg)):
+        out[f"seg{i}"] = expand(BL.cache_entry_spec(cfg, seg.kind, batch, max_seq), seg.count)
+    out["t"] = part(((), "int32", ()))
+    return out
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
     """The cache tree's {name: (shape, dtype string)} leaves, as nested dicts
     with the reference's paths: each segment's entry stacked on a leading
     layer dimension, and ``t``."""
-    def expand(entry, count):
-        return {k: expand(v, count) if isinstance(v, dict) else ((count,) + v[0], v[1])
-                for k, v in entry.items()}
+    return _cache_entries(cfg, batch, max_seq, lambda e: e[:2])
 
-    specs: dict[str, Any] = {}
-    for i, seg in enumerate(layer_plan(cfg)):
-        specs[f"seg{i}"] = expand(BL.cache_entry_spec(cfg, seg.kind, batch, max_seq),
-                                  seg.count)
-    specs["t"] = ((), "int32")
-    return specs
+
+def cache_logical_axes(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    """The cache tree's logical axes (the second tree the reference's
+    ``cache_specs`` returns)."""
+    return _cache_entries(cfg, batch, max_seq, lambda e: e[2])
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> dict:

@@ -22,11 +22,13 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamSpec
+from repro_torch.parallel.collectives import group_sum
 
 
 def moe_spec(cfg: ModelConfig) -> dict:
@@ -80,9 +82,15 @@ def groups(T: int, moe_groups: int) -> int:
     return G
 
 
-def route(router_w: torch.Tensor, cfg: ModelConfig, xg: torch.Tensor):
+def route(router_w: torch.Tensor, cfg: ModelConfig, xg: torch.Tensor, batch_group=None):
     """xg (G,Tg,D) -> (top_p (G,Tg,K) renormalised, top_e (G,Tg,K), aux loss),
-    all in fp32; top-k sorted by descending probability."""
+    all in fp32; top-k sorted by descending probability.
+
+    With ``batch_group`` (the ranks holding the other groups of the batch,
+    as many tokens each), the aux loss is this rank's share of the whole
+    batch's: the expert densities are averaged over the ranks, and the
+    shares sum to the aux loss of all the groups together, in value and
+    gradient."""
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     logits = torch.einsum("gtd,de->gte", xg.float(), router_w.float())
     probs = torch.softmax(logits, dim=-1)
@@ -91,7 +99,12 @@ def route(router_w: torch.Tensor, cfg: ModelConfig, xg: torch.Tensor):
     # load-balance aux loss (Switch style)
     density = torch.mean(F.one_hot(top_e[..., 0], E).float(), dim=(0, 1))
     mean_prob = torch.mean(probs, dim=(0, 1))
-    aux = torch.sum(density * mean_prob) * E * cfg.router_aux_weight
+    if batch_group is None:
+        aux = torch.sum(density * mean_prob) * E * cfg.router_aux_weight
+    else:
+        R = dist.get_world_size(batch_group)
+        aux = torch.sum(group_sum(density, batch_group) / R * mean_prob) * E \
+            * cfg.router_aux_weight / R
     return top_p, top_e, aux
 
 
@@ -155,8 +168,9 @@ def combine(ye: torch.Tensor, flat_e: torch.Tensor, slot: torch.Tensor,
     return torch.sum(contrib.reshape(Gn, TK // K, K, D), dim=2)
 
 
-def moe_ffn(p, cfg: ModelConfig, x: torch.Tensor, moe_groups: int):
-    """x: (B,S,D) -> (out, aux_loss).  Token order is preserved."""
+def moe_ffn(p, cfg: ModelConfig, x: torch.Tensor, moe_groups: int, batch_group=None):
+    """x: (B,S,D) -> (out, aux_loss).  Token order is preserved.
+    ``batch_group``: see ``route``."""
     dt = L.torch_dtype(cfg.compute_dtype)
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.num_experts_per_tok
@@ -166,7 +180,7 @@ def moe_ffn(p, cfg: ModelConfig, x: torch.Tensor, moe_groups: int):
     C = capacity(Tg, cfg)
     xg = x.reshape(G, Tg, D)
 
-    top_p, top_e, aux = route(p["router"], cfg, xg)
+    top_p, top_e, aux = route(p["router"], cfg, xg, batch_group)
     flat_e = top_e.reshape(G, Tg * K)
     slot, valid, slot_tok, slot_filled = assign_slots(flat_e, E, C, K)
     xe = dispatch(xg, slot_tok, slot_filled, E, C, cfg.moe_dispatch_bits == 8)

@@ -64,10 +64,13 @@ UPDATE_SLICE = 1 << 26
 
 
 @torch.no_grad()
-def apply_updates(params, grads, opt, step: torch.Tensor, oc: OptConfig):
+def apply_updates(params, grads, opt, step: torch.Tensor, oc: OptConfig, *,
+                  grad_norm=None):
     """Updates ``params`` and ``opt`` in place; returns (params, opt,
-    {"grad_norm", "lr"}) with the same tensors."""
-    gnorm = global_norm(grads)
+    {"grad_norm", "lr"}) with the same tensors.  ``grad_norm``: the norm to
+    clip by, where ``grads`` hold only this rank's blocks of the gradients
+    (default: ``global_norm(grads)``)."""
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     clip = torch.clamp(oc.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = schedule(oc, step)
     b1, b2 = oc.b1, oc.b2

@@ -6,7 +6,10 @@ applied to serving (``launch/serve.py --snapshot-at`` snapshots a
 half-generated batch and resumes it in a fresh engine).  PyTorch runs
 eagerly, so there is no step factory to lower: ``prefill`` and ``generate``
 call the model's functions directly, and attention on a CUDA tensor goes
-through the hand-written kernels.
+through the hand-written kernels.  As the reference's step factories do,
+the engine runs under its mesh and rules (``parallel.context``), and MoE
+layers route with the batch axis's shard count as their group count (1 on
+one card).
 """
 from __future__ import annotations
 
@@ -16,16 +19,33 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import model as M
+from repro_torch.parallel.context import use_mesh_context
+from repro_torch.parallel.mesh_rules import Rules
 from repro_torch.serve.weight_sync import ParamHandle
+from repro_torch.utils.tree import flatten_with_names
+
+
+def _device_of(params) -> torch.device:
+    tree = params.tree if isinstance(params, M.LM) else params
+    return next(x for _, x in flatten_with_names(tree)).device
 
 
 class Engine:
     """Minimal batched serving engine with checkpointable generation state."""
 
     def __init__(self, cfg: ModelConfig, params, *, batch: int, max_seq: int,
-                 impl: Optional[str] = None, sync_client=None):
+                 impl: Optional[str] = None, sync_client=None,
+                 rules: Optional[Rules] = None):
         self.cfg = cfg
+        self.param_handle = (params if isinstance(params, ParamHandle)
+                             else ParamHandle(params))
+        # default: the host mesh (one rank unless a process group is up) on
+        # the device of the params
+        self.rules = rules or Rules(make_host_mesh(_device_of(self.param_handle.current)))
+        self.mesh = self.rules.mesh
+        self.moe_groups = self.rules.axis_group_size("batch")
         # optional WeightSyncClient: wires the staleness gate into the
         # serving loop as ADMISSION CONTROL (admit() below) instead of a
         # mid-batch failure
@@ -33,8 +53,6 @@ class Engine:
         # swap-safe weights: the engine serves ``param_handle.current`` and
         # commits a staged update (weight_sync's double buffer) only at
         # generation boundaries — a decode loop can never see a torn tree.
-        self.param_handle = (params if isinstance(params, ParamHandle)
-                             else ParamHandle(params))
         self.batch = batch
         self.max_seq = max_seq
         self.impl = impl
@@ -65,10 +83,10 @@ class Engine:
         if tokens.shape[0] != self.batch or tokens.shape[1] > self.max_seq:
             raise ValueError(f"prompts {tuple(tokens.shape)} do not fit batch "
                              f"{self.batch} and max_seq {self.max_seq}")
-        # one routing group: what the reference's engine routes with on one
-        # device (its group count is the batch axis's device count)
-        logits, self.cache = M.prefill(self.param_handle.current, self.cfg, prompts,
-                                       self.max_seq, impl=self.impl, moe_groups=1)
+        with use_mesh_context(self.mesh, self.rules):
+            logits, self.cache = M.prefill(self.param_handle.current, self.cfg, prompts,
+                                           self.max_seq, impl=self.impl,
+                                           moe_groups=self.moe_groups)
         self.last_logits = logits
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         if self.cfg.num_codebooks and nxt.ndim == 1:
@@ -85,8 +103,9 @@ class Engine:
             raise ValueError(f"{n} more tokens overflow the cache of {self.max_seq}")
         out = []
         for _ in range(n):
-            logits, self.cache = M.decode_step(params, self.cfg, self.last_tokens,
-                                               self.cache, impl=self.impl)
+            with use_mesh_context(self.mesh, self.rules):
+                logits, self.cache = M.decode_step(params, self.cfg, self.last_tokens,
+                                                   self.cache, impl=self.impl)
             self.last_logits = logits
             self.last_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
             out.append(self.last_tokens.cpu().numpy())

@@ -1,25 +1,44 @@
-"""Train step: microbatched (gradient accumulation as the reference's), one device.
+"""Train step: microbatched (gradient accumulation as the reference's), over a mesh.
 
 The state is a plain dict ``{params, opt{m,v}, step}`` with the reference's
 tree and names (``repro/train/step.py``), so the checkpoint plane saves it
-as it saves the reference's.  ``make_train_step`` returns a function
-``step(state, batch) -> (state, metrics)`` that differentiates
-``models.model.loss_fn`` with autograd and updates the params and moments
-in place (``optim.adamw.apply_updates``); ``step`` is a new 0-d tensor.
-The reference's logical-axis shardings are not ported: the port trains on
-one card.
+as it saves the reference's; ``state_logical_axes`` annotates it for the
+mesh rules.  ``make_train_step`` returns a function ``step(state, batch) ->
+(state, metrics)`` that differentiates ``models.model.loss_fn`` with
+autograd and updates the params and moments in place
+(``optim.adamw.apply_updates``); ``step`` is a new 0-d tensor.
+
+Over a mesh of several ranks (``core.virtualization.place_tree`` lays the
+state out; a leaf the rules split is a ``DTensor``), each rank takes its
+rows of the global batch by the batch's placement, computes with every
+parameter gathered whole, and the gradients are summed over the batch
+ranks; AdamW then updates each rank's own blocks of the params and moments,
+clipped by the norm of the whole gradient.  The products are not split over
+"model": tensor-parallel compute is not ported.  On a mesh of one rank
+every leaf is a plain tensor, and the step is the one-device step.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.virtualization import full_tensor
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
+from repro_torch.parallel.collectives import group_sum
+from repro_torch.parallel.context import use_mesh_context
+from repro_torch.parallel.mesh_rules import Rules, batch_logical_axes, named_axes
 from repro_torch.utils.tree import flatten_with_names, tree_map, unflatten_like
+
+
+def state_logical_axes(cfg: ModelConfig) -> dict:
+    pax = M.param_logical_axes(cfg)
+    return {"params": pax, "opt": {"m": pax, "v": pax}, "step": ()}
 
 
 def predump_boundary(step: int, interval: int, lead: int = 1) -> bool:
@@ -75,13 +94,15 @@ def init_train_state(cfg: ModelConfig, oc: adamw.OptConfig, seed: int, device) -
 
 
 def loss_and_grads(params: dict, cfg: ModelConfig, batch: dict, *, impl=None,
-                   z_loss: float = 1e-4):
+                   z_loss: float = 1e-4, moe_groups: int = 1, batch_group=None):
     """(loss, metrics, grads) of ``loss_fn`` at ``params``; grads is a tree
     like ``params``, each leaf in its parameter's dtype: zeros for a leaf
     the loss does not use (a segment of 0 layers, as ``jax.grad`` gives).
-    The params are read, never written.  MoE layers route with one group:
-    the reference's train step passes its batch shard count, 1 on one
-    device (``loss_fn``'s own default, 16, is serving's).
+    The params are read, never written.  MoE layers route with
+    ``moe_groups`` groups: the train step passes the reference's, its batch
+    shard count (1 on one device; ``loss_fn``'s own default, 16, is
+    serving's), over this rank's share.  ``batch_group``: as ``loss_fn``'s,
+    the loss and the gradients are then this rank's shares.
 
     A segment's stacked leaves are differentiated one layer at a time (a
     leaf per layer, a view of the stacked tensor) and each stacked
@@ -108,7 +129,8 @@ def loss_and_grads(params: dict, cfg: ModelConfig, batch: dict, *, impl=None,
             layers.append(unflatten_like(params[key], views))
         tree[key] = layers
     with torch.enable_grad():
-        loss, metrics = M.loss_fn(tree, cfg, batch, moe_groups=1, impl=impl, z_loss=z_loss)
+        loss, metrics = M.loss_fn(tree, cfg, batch, moe_groups=moe_groups, impl=impl,
+                                  z_loss=z_loss, batch_group=batch_group)
         grads = list(torch.autograd.grad(loss, [t for _, t in wrt], allow_unused=True))
     pieces: dict = {}
     for (n, t), g in zip(wrt, grads):
@@ -128,31 +150,82 @@ def loss_and_grads(params: dict, cfg: ModelConfig, batch: dict, *, impl=None,
             unflatten_like(params, out))
 
 
-def make_train_step(cfg: ModelConfig, oc: adamw.OptConfig, *, microbatches: int = 1,
+def shard_batch(rules: Rules, batch: dict) -> tuple[dict, object, int]:
+    """(this rank's rows of a global batch by the batch's placement, the
+    process group of the ranks holding the other rows (``None``: one), how
+    many slices the batch splits into)."""
+    axes = batch_logical_axes(batch)
+    tok = batch["tokens"]
+    mesh_axes = rules.dim_axes(axes["tokens"], tuple(tok.shape))[0]
+    local = {k: x[rules.local_slices(axes[k], tuple(x.shape))] for k, x in batch.items()}
+    return local, rules.mesh.group(mesh_axes), rules.shard_count(mesh_axes)
+
+
+def make_train_step(cfg: ModelConfig, oc: adamw.OptConfig, *,
+                    rules: Optional[Rules] = None, microbatches: int = 1,
                     impl: Optional[str] = None, z_loss: float = 1e-4):
-    """The reference's train step on one device.  Microbatch gradients are
-    summed in bfloat16 for bfloat16 params, else in float32, divided by the
-    microbatch count in that dtype, then cast to float32, as the reference's
-    default ``accum_dtype`` does.  The step's metrics are the reference's (``loss``,
-    ``ce`` and the optimiser's) plus the loss's ``aux`` and ``mtp_ce``
-    (mean over the microbatches), which the reference computes but does not
-    return."""
+    """The reference's train step over ``rules``' mesh (default: the rules
+    of ``launch.mesh.make_host_mesh`` on the device of the first state the
+    step is given, one rank unless a process group is up).  MoE layers
+    route with the batch shard count as their group count, as the
+    reference's (1 on one rank).  Microbatch gradients (each summed over
+    the batch ranks) are summed in bfloat16 for bfloat16 params, else in
+    float32, divided by the microbatch count in that dtype, then cast to
+    float32, as the reference's default ``accum_dtype`` does.  The step's
+    metrics are the reference's (``loss``, ``ce`` and the optimiser's) plus
+    the loss's ``aux`` and ``mtp_ce`` (mean over the microbatches), which
+    the reference computes but does not return; each is the whole batch's."""
     adt = torch.bfloat16 if cfg.param_dtype == "bfloat16" else torch.float32
-    kw = dict(impl=impl, z_loss=z_loss)
+    param_axes = dict(named_axes(state_logical_axes(cfg)["params"]))
+
+    def grads_of(full: dict, mb: dict):
+        local, group, shards = shard_batch(rules, mb)
+        moe_groups = rules.axis_group_size("batch")
+        if moe_groups % shards:
+            raise ValueError(f"{moe_groups} routing groups do not split over the "
+                             f"batch's {shards} slices")
+        loss, mets, grads = loss_and_grads(full, cfg, local, impl=impl, z_loss=z_loss,
+                                           moe_groups=moe_groups // shards,
+                                           batch_group=group)
+        if group is not None:
+            for _, g in flatten_with_names(grads):
+                dist.all_reduce(g, group=group)
+            loss = group_sum(loss, group)
+            mets = {k: group_sum(v, group) for k, v in mets.items() if k != "tokens"}
+        return loss, mets, grads
+
+    def own_blocks(grads: dict, params: dict) -> dict:
+        """Each gradient cut to the block of its parameter this rank holds."""
+        named = dict(flatten_with_names(params))
+        return unflatten_like(grads, {
+            n: g[rules.local_slices(param_axes[n], tuple(g.shape))]
+            if hasattr(named[n], "to_local") else g
+            for n, g in flatten_with_names(grads)})
+
+    def local(tree):
+        return tree_map(lambda x: x.to_local() if hasattr(x, "to_local") else x, tree)
 
     def train_step(state: dict, batch: dict):
+        nonlocal rules
+        if rules is None:
+            rules = Rules(make_host_mesh(state["step"].device))
+        with use_mesh_context(rules.mesh, rules):      # for impl="ring"
+            return _step(state, batch)
+
+    def _step(state: dict, batch: dict):
         params = state["params"]
+        full = tree_map(full_tensor, params)
         B = batch["tokens"].shape[0]
-        mb_count = effective_microbatches(B, microbatches, 1)
+        mb_count = effective_microbatches(B, microbatches, rules.axis_group_size("batch"))
         if mb_count == 1:
-            loss, metrics, grads = loss_and_grads(params, cfg, batch, **kw)
+            loss, metrics, grads = grads_of(full, batch)
         else:
             gsum = lsum = None
             msum: dict = {}
             for i in range(mb_count):
                 mb = {k: x[i * (B // mb_count):(i + 1) * (B // mb_count)]
                       for k, x in batch.items()}
-                l, mets, g = loss_and_grads(params, cfg, mb, **kw)
+                l, mets, g = grads_of(full, mb)
                 if gsum is None:
                     gsum, lsum = tree_map(lambda x: x.to(adt), g), l
                 else:
@@ -164,7 +237,12 @@ def make_train_step(cfg: ModelConfig, oc: adamw.OptConfig, *, microbatches: int 
             grads = tree_map(lambda g: (g / mb_count).float(), gsum)
             loss = lsum / mb_count
             metrics = {k: v / mb_count for k, v in msum.items()}
-        _, _, om = adamw.apply_updates(params, grads, state["opt"], state["step"], oc)
+        del full
+        # each rank's blocks, clipped by the norm of the whole gradient, which
+        # every rank holds (on one rank: the whole leaves and their own norm)
+        _, _, om = adamw.apply_updates(local(params), own_blocks(grads, params),
+                                       local(state["opt"]), state["step"], oc,
+                                       grad_norm=adamw.global_norm(grads))
         new_state = {"params": params, "opt": state["opt"], "step": state["step"] + 1}
         extra = {k: metrics[k] for k in ("aux", "mtp_ce") if k in metrics}
         return new_state, {"loss": loss, "ce": metrics.get("ce", loss), **om, **extra}

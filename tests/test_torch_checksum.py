@@ -119,7 +119,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="no kernel for device"):
         CK.checksum(torch.zeros(8, dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError, match="not available"):
-        ops.checksum(torch.zeros(8, dtype=torch.int32), impl="ring")
+        ops.checksum(torch.zeros(8, dtype=torch.int32), impl="pallas_interpret")
 
 
 # ---------------------------------------------------------------------------

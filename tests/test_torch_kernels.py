@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import _build, decode_attention, flash_attention, ops, ref
 from repro_torch.kernels import ssd as SSD
 from repro_torch.kernels import wkv6 as WKV
+from repro_torch.kernels.xla_attention import causal_blockwise
 
 TOL = {"float32": 2e-5, "bfloat16": 5e-2}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -530,14 +531,19 @@ def test_tensor_core_ssd_model_is_the_same_at_every_slice_width(P, p_slice):
 def test_ops_rejects_unknown_impl():
     q = torch.zeros(1, 4, 2, 32)
     with pytest.raises(ValueError, match="not available"):
-        ops.attention(q, q[:, :, :1], q[:, :, :1], impl="ring")
+        ops.attention(q, q[:, :, :1], q[:, :, :1], impl="pallas_interpret")
 
 
 def test_ops_plain_impls_run_on_cpu():
     q, k, v = torch.randn(1, 8, 4, 32), torch.randn(1, 8, 2, 32), torch.randn(1, 8, 2, 32)
     want = ref.attention(q, k, v, causal=True)
     for impl in ops.KERNEL_IMPLS + ops.PLAIN_IMPLS:
-        assert torch.equal(ops.attention(q, k, v, causal=True, impl=impl), want)
+        got = ops.attention(q, k, v, causal=True, impl=impl)
+        if impl == "xla_chunked":       # the reference's blockwise path, as its ops'
+            assert torch.equal(got, causal_blockwise(q, k, v))
+            assert float((got - want).abs().max()) < 2e-5
+        else:
+            assert torch.equal(got, want)
 
 
 def test_ops_refuses_devices_without_a_path():

@@ -198,9 +198,9 @@ def test_microbatch_gradients_accumulate_as_the_reference(monkeypatch):
     captured = {}
     apply = adamw.apply_updates
 
-    def capture(params, grads, *a):
+    def capture(params, grads, *a, **kw):
         captured.setdefault("g", dict(flatten_with_names(grads)))
-        return apply(params, grads, *a)
+        return apply(params, grads, *a, **kw)
 
     monkeypatch.setattr(adamw, "apply_updates", capture)
     _, om = TS.make_train_step(cfg, oc, microbatches=2)(to_port(ref_state), port_batch(batch))
