@@ -24,7 +24,8 @@ Phases, in order; any failure exits non-zero:
    time and the library call's (torch.profiler's kernel time per call,
    median/min/max of 5, with the library's kernels named), its call time
    (back-to-back calls between CUDA events, bounded by the host), the plain
-   version's time (events) and the bound; among them MLA's: ``flash`` at
+   version's time (events) and the bound (``kernels/costs.py``'s formula at
+   ``launch/roofline.py``'s rates); among them MLA's: ``flash`` at
    (Dq, Dv) = (192, 128) with 128 heads, ``flash_decode`` at the absorbed
    shape (one kv head for 128 query heads, Dq 576, Dv 512, V a strided view
    of K's rows, the caller's scale), and both at reduced MLA's (48, 32);
@@ -105,7 +106,18 @@ Phases, in order; any failure exits non-zero:
    (2, 1) train three steps and save, then restore the save at (2, 1) and at
    (1, 2) and take step 4; the card restores it and takes step 4 too; every
    step-4 loss within 5e-4 of the (2, 1) restore's, and the card's re-save
-   of the restored state keeps the CPU save's chunk hashes bit for bit.
+   of the restored state keeps the CPU save's chunk hashes bit for bit;
+13. analysis: (a) phase 2's bounds read as PERF.md's table prints them
+   (EXPECTED_BOUNDS); (b) a train step of qwen2-0.5b at full width and 8
+   layers on the card under ``launch/hlo_costs.py``'s walk against the dry
+   run of the same step on meta tensors: FLOPs and kernel calls equal, the
+   arguments' bytes equal to the live state's and batch's, the predicted
+   peak within 25% of the allocator's; (c) ``python -m
+   repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k --mesh pod``
+   and ``python -m repro_torch.launch.roofline`` as CPU subprocesses
+   (started with phase 11(c)) exit 0 with an ok record; (d) each step the
+   earlier phases time on the device (5, 6, 10(a), 11(a)-(b)) as a share of
+   the peak: model FLOPs over (device time x peak), none above 1.05.
 
 Phase 12's two CPU ranks run ``chip_smoke.py --gloo-child RANK WORLD STORE
 WORK``, with no card, meet through a ``FileStore``, and start with phase 11(b).  The C/R loops
@@ -140,10 +152,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
-# dense tensor-core bf16; fp32 FMA on the CUDA cores, also the rate taken for
-# the checksum kernels' 32-bit integer operations (the guide lists no int32 rate)
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "uint32": 67e12}
 TOL = {"float32": 2e-5, "bfloat16": 5e-2}
 # bfloat16 attention also element by element: |kernel - plain| <= atol + rtol
 # |plain|.  rtol covers the output's rounding to bfloat16 (at most 2^-8 of
@@ -390,7 +398,13 @@ def copies_past_l2(tensors) -> list:
     return [tuple(t.clone() for t in tensors) for _ in range(n)]
 
 
-def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
+def bound(cost: tuple, dtype: str) -> tuple[float, str]:
+    """The least ms the card could take for a kernel's (flops, bytes)
+    (``kernels/costs.py``), at the rates of ``launch/roofline.py``, and
+    which of the two bounds it."""
+    from repro_torch.launch.roofline import HBM_BYTES_PER_S, PEAK_FLOPS
+
+    flops, nbytes = cost
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -461,7 +475,7 @@ def phase_kernels() -> dict:
     import torch.nn.functional as F
 
     from repro_torch.configs.base import get_config, reduced
-    from repro_torch.kernels import decode_attention, flash_attention, ref
+    from repro_torch.kernels import costs, decode_attention, flash_attention, ref
     from repro_torch.models.attention import mla_scale
 
     deepseek = get_config("deepseek-v3-671b")
@@ -523,9 +537,7 @@ def phase_kernels() -> dict:
         def lib(q, k, v):
             return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
 
-        nbytes = elt * (B * S * H * (Dq + Dv) + B * S * Hkv * (Dq + Dv))
-        flops = 2 * B * H * (S * (S + 1) // 2) * (Dq + Dv)
-        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        b_ms, b_by = bound(costs.flash(B, S, S, H, Hkv, Dq, Dv, elt), "bfloat16")
         dims = f"D{Dq}" if Dq == Dv else f"Dq{Dq} Dv{Dv}"
         shapes.append(dict(
             kernel="flash", label=label, source=source,
@@ -622,12 +634,8 @@ def phase_kernels() -> dict:
                 log(f"  flash_decode library, {label}, {how} call: device ms {fmt(st)} "
                     f"({', '.join(k[:60] for k in st['kernels'][:3])})")
 
-        # each input read once up to kv_len, the output written once, kv_len
-        # itself; V counted apart only where it is not a view of K's rows
-        v_bytes = 0 if absorbed else B * kv_len * Hkv * Dv
-        nbytes = elt * (B * H * (Dq + Dv) + B * kv_len * Hkv * Dq + v_bytes) + 4
-        flops = 2 * B * H * kv_len * (Dq + Dv)
-        b_ms, b_by = bound(nbytes, flops, "bfloat16")
+        b_ms, b_by = bound(costs.flash_decode(B, S, H, Hkv, Dq, Dv, kv_len, elt,
+                                              v_is_k=absorbed), "bfloat16")
         dims = f"Dq{Dq} Dv{Dv} (v a view of k)" if absorbed else f"D{Dq}"
         shapes.append(dict(
             kernel="flash_decode", label=label, source=source,
@@ -716,7 +724,7 @@ def _checksum_kernels(gen) -> dict:
     import torch
 
     from repro_torch.kernels import checksum as CK
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import costs, ops, ref
 
     def words(n):
         return torch.randint(-2**31, 2**31, (n,), generator=gen, dtype=torch.int64,
@@ -748,14 +756,14 @@ def _checksum_kernels(gen) -> dict:
     # the embed table's aligned body: 151936 x 896 float32, 519 whole 1 MiB chunks
     cw = 262144
     body = torch.randn(519 * cw, generator=gen, device="cuda").view(torch.int32)
-    nchunks = body.numel() // cw
     out = {}
-    for name, fn, plain, out_bytes, source in (
+    for name, fn, plain, cost, source in (
             ("chunk_fingerprints", lambda w: CK.chunk_fingerprints(w, cw),
-             lambda w: ref.chunk_fingerprints(w, cw), 4 * nchunks, "train"),
+             lambda w: ref.chunk_fingerprints(w, cw),
+             costs.chunk_fingerprints(body.numel(), cw), "train"),
             ("checksum", lambda w: CK.checksum(w, block=2048),
-             lambda w: ref.checksum(w), 4, None)):
-        b_ms, b_by = bound(4 * body.numel() + out_bytes, 6 * body.numel(), "uint32")
+             lambda w: ref.checksum(w), costs.checksum(body.numel()), None)):
+        b_ms, b_by = bound(cost, "uint32")
         r = dict(kernel=name, label="qwen2-0.5b embed table", source=source,
                  shape=f"{body.numel()} words (519 x 1 MiB) int32",
                  ms=device_ms(fn, [(body,)]), call_ms=call_ms(fn, [(body,)]), library_ms=None,
@@ -765,17 +773,6 @@ def _checksum_kernels(gen) -> dict:
             f"{fmt(r['call_ms'])}  plain_ms {r['plain_ms']:.4f}  library none  "
             f"bound_ms {b_ms:.5f} ({b_by})")
     return out
-
-
-def ssd_flops(B: int, S: int, H: int, P: int, N: int, Q: int = 64) -> int:
-    """Operations of csrc/ssd_scan.cu's chunked form (chunk Q) on these shapes:
-    lower-triangle scores, y, and the state update, per (batch, head)."""
-    per = 0
-    for t0 in range(0, S, Q):
-        L = min(Q, S - t0)
-        tri = L * (L + 1) // 2
-        per += tri * (2 * N + 2) + tri * 2 * P + L * P * (2 * N + 4) + P * N * (3 * L + 2)
-    return B * H * per
 
 
 def _scan_inputs(kind, shape, dtype, gen, with_state):
@@ -896,6 +893,8 @@ def _scan_timing(name, kernel, plain, shape, label, source, state_out, gen) -> d
     ``shape``, with the final state written or not."""
     import torch
 
+    from repro_torch.kernels import costs
+
     args, _ = _scan_inputs(name, shape, torch.bfloat16, gen, False)
     sets = copies_past_l2(args)
 
@@ -904,16 +903,8 @@ def _scan_timing(name, kernel, plain, shape, label, source, state_out, gen) -> d
 
     plain_ms = timed_ms(lambda *a: plain(*a, return_state=state_out), sets, iters=3)
     elt = args[0].element_size()
-    if name == "ssd":
-        B, S, H, P, N = shape
-        nbytes = (elt * (2 * B * S * H * P + B * S * H + 2 * B * S * N) + 8 * H
-                  + state_out * 4 * B * H * P * N)
-        flops = ssd_flops(B, S, H, P, N)
-    else:
-        B, S, H, D = shape
-        nbytes = elt * 5 * B * S * H * D + 4 * H * D + state_out * 4 * B * H * D * D
-        flops = B * S * H * (4 * D * D + 5 * D)
-    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    flops, nbytes = getattr(costs, name)(*shape, elt, state_out=state_out)
+    b_ms, b_by = bound((flops, nbytes), "bfloat16")
     r = dict(kernel=name, label=label, source=source,
              shape=f"{'x'.join(map(str, shape))} bfloat16"
                    + (", final state out" if state_out else ", no state"),
@@ -1076,7 +1067,7 @@ def _range_device_us(prof) -> dict:
     return out
 
 
-def phase_profile(arch: str, model, steps: int = 8) -> dict:
+def phase_profile(arch: str, model, steps: int = 4) -> dict:
     """Where the device time of the serving path goes, at the main path's
     shapes, over one prefill and over ``steps`` decode steps.  Each window is
     run twice: untraced, for its host-clock wall time, then under
@@ -1141,6 +1132,7 @@ def phase_profile(arch: str, model, steps: int = 8) -> dict:
             out[name]["moe_share"] = shares
     del eng, model
     torch.cuda.empty_cache()
+    out["cfg"] = cfg
     return out
 
 
@@ -1338,7 +1330,7 @@ def phase_state(work: Path) -> dict:
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import SyntheticTokens
     from repro_torch.kernels import checksum as CK
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import costs, ops, ref
     from repro_torch.optim import adamw
     from repro_torch.train import step as TS
     from repro_torch.utils.tree import flatten_with_names
@@ -1419,7 +1411,7 @@ def phase_state(work: Path) -> dict:
             fn()
         torch.cuda.synchronize()
         tree[label] = (time.perf_counter() - t0) / iters * 1e3
-    tree_bound, _ = bound(nbytes, 6 * nbytes / 4, "uint32")
+    tree_bound, _ = bound(costs.chunk_fingerprints(nbytes // 4, cw), "uint32")
     log(f"  whole-state tree call ({nbytes / 1e9:.3f} GB, host clock, fingerprints on "
         f"the host at the end): kernel {tree['kernel']:.3f} ms, plain {tree['plain']:.3f} "
         f"ms, bound {tree_bound:.4f} ms (bytes)")
@@ -1452,7 +1444,8 @@ def phase_state(work: Path) -> dict:
     shutil.rmtree(work / "resave")
     del state, named, fps
     torch.cuda.empty_cache()
-    return {"step_ms": wall_s * 1e3, "busy_share": busy_s / wall_s, "tree_ms": tree,
+    return {"step_ms": wall_s * 1e3, "device_ms": busy_s * 1e3, "cfg": cfg,
+            "busy_share": busy_s / wall_s, "tree_ms": tree,
             "tree_bound_ms": tree_bound, "saves": saves}
 
 
@@ -2048,7 +2041,7 @@ def phase_train_full(arch: str, cfg=None, key=None, params=None) -> dict:
             "step_ms": wall_s * 1e3, "device_ms": busy_us / 1e3, "busy_share": busy,
             "recompute_ms": {k: v / 1e3 for k, v in recompute_us.items()},
             "recompute_share": shares, "moe_share": moe_shares, "peak_bytes": peak,
-            "state_bytes": nbytes, "init_s": init_s}
+            "state_bytes": nbytes, "init_s": init_s, "cfg": cfg}
 
 
 def phase_cr_in_process(work: Path, arch: str, layers: int) -> dict:
@@ -2425,6 +2418,219 @@ def phase_parallel(work: Path, ranks: "_GlooGroup") -> dict:
             "card_flash": card_flash, "ring_fallthrough": ring_fallthrough,
             "ring_launches": ring_launches}
 
+# ----------------------------------------------------------------------------------
+# phase 13: the analysis tools (kernels/costs.py, launch/{hlo_costs,dryrun,roofline})
+# ----------------------------------------------------------------------------------
+
+# phase 2's bounds as PERF.md's kernel table prints them, (kernel, label) ->
+# ms at those digits: the formulas of kernels/costs.py give the bounds the
+# inline arithmetic gave before them
+EXPECTED_BOUNDS = {
+    ("flash", "qwen2-0.5b prefill"): "0.00250",
+    ("flash", "zamba2-1.2b shared block"): "0.01002",
+    ("flash", "qwen2-0.5b train forward"): "0.00125",
+    ("flash", "zamba2-1.2b train forward"): "0.00501",
+    ("flash", "qwen3-4b prefill"): "0.01252",
+    ("flash", "granite-moe-3b-a800m prefill"): "0.00501",
+    ("flash", "deepseek-v3-671b MLA prefill"): "0.10016",
+    ("flash", "reduced deepseek-v3 MLA prefill (phase 4)"): "0.00002",
+    ("flash", "granite-moe-3b-a800m train forward"): "0.00250",
+    ("flash", "deepseek-v3-671b MLA train forward"): "0.05008",
+    ("flash_decode", "qwen2-0.5b decode"): "0.00034",
+    ("flash_decode", "zamba2-1.2b decode"): "0.00533",
+    ("flash_decode", "qwen3-4b decode"): "0.00268",
+    ("flash_decode", "granite-moe-3b-a800m decode"): "0.00134",
+    ("flash_decode", "deepseek-v3-671b MLA absorbed decode"): "0.00108",
+    ("flash_decode", "reduced deepseek-v3 MLA absorbed decode (phase 4)"): "0.000002",
+    ("chunk_fingerprints", "qwen2-0.5b embed table"): "0.16245",
+    ("checksum", "qwen2-0.5b embed table"): "0.16245",
+    ("ssd", "zamba2-1.2b prefill"): "0.01150",
+    ("ssd", "zamba2-1.2b train forward"): "0.00513",
+    ("wkv6", "rwkv6-1.6b prefill"): "0.01315",
+    ("wkv6", "rwkv6-1.6b train forward"): "0.00626",
+}
+# (c): the dry run and the roofline as a user runs them, on the CPU
+ANALYSIS_CLI = (["repro_torch.launch.dryrun", "--arch", "qwen2-0.5b", "--shape", "train_4k",
+                 "--mesh", "pod"],
+                ["repro_torch.launch.roofline"])
+ANALYSIS_DEADLINE_S = 240
+PEAK_TOL = 0.25          # (b): the dry run's peak against the allocator's
+SHARE_MAX = 1.05         # (d): model FLOPs over (device time x peak)
+
+
+class _AnalysisCLI:
+    """Phase 13(c)'s two commands, one after the other in a thread, with no
+    card, started before phase 11(c) so that they run behind it."""
+
+    def __init__(self, work: Path):
+        self.log = work / "analysis.log"
+        self.proc, self.rcs, self.secs, self.stopped = None, [], [], False
+        self.deadline = time.monotonic() + ANALYSIS_DEADLINE_S
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self) -> None:
+        env = {**_child_env(), "CUDA_VISIBLE_DEVICES": ""}
+        with open(self.log, "w") as out:
+            for argv in ANALYSIS_CLI:
+                if self.stopped:
+                    return
+                t0 = time.perf_counter()
+                self.proc = subprocess.Popen([sys.executable, "-m", *argv], env=env, cwd=ROOT,
+                                             stdout=out, stderr=subprocess.STDOUT)
+                self.rcs.append(self.proc.wait())
+                self.secs.append(time.perf_counter() - t0)
+                if self.rcs[-1]:
+                    return
+
+    def kill(self) -> None:
+        self.stopped = True
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def wait(self) -> dict:
+        self.thread.join(max(self.deadline - time.monotonic(), 1))
+        if self.thread.is_alive():
+            self.kill()
+            self.thread.join()
+        text = self.log.read_text()
+        if self.rcs != [0, 0]:
+            raise AssertionError(f"dryrun / roofline exited {self.rcs}:\n{_tail(text)}")
+        rec = json.loads((ROOT / "results" / "dryrun_torch" / "qwen2-0.5b__train_4k__pod.json")
+                         .read_text())
+        if not rec.get("ok"):
+            raise AssertionError(f"the dry run's record is not ok: {rec.get('error')}")
+        return {"record": rec, "secs": self.secs, "output": text}
+
+
+def phase_analysis(kern: dict, timed: list, cli: "_AnalysisCLI") -> dict:
+    """(a) phase 2's bounds, from ``kernels/costs.py`` and the roofline's
+    constants, read as PERF.md's table prints them; (b) one train step of
+    qwen2-0.5b at full width and phase 6's STATE_LAYERS layers (B8 S128) on
+    the card under ``launch/hlo_costs.py``'s walk, against the dry run of
+    the same configuration and shape on meta tensors (mesh (1, 1)): FLOPs
+    and kernel calls by kind equal (and equal to the wrappers' launches),
+    the arguments' bytes equal to the live state's and batch's, the
+    predicted peak (arguments + temporaries) within PEAK_TOL of
+    ``torch.cuda.max_memory_allocated()``; (c) ``launch.dryrun`` and
+    ``launch.roofline`` as subprocesses (``cli``): both exit 0, the record
+    ok; (d) each step timed on the device in the earlier phases (``timed``:
+    label, config, kind, batch, seq, device ms): model FLOPs over (device
+    time x the compute dtype's peak), none above SHARE_MAX."""
+    # ---- (a) the bounds --------------------------------------------------------
+    seen = {}
+    for name, r in kern.items():
+        for sh in r["shapes"]:
+            want = EXPECTED_BOUNDS.get((name, sh["label"]))
+            if want is not None:
+                seen[(name, sh["label"])] = f"{sh['bound_ms']:.{len(want) - 2}f}"
+    if seen != EXPECTED_BOUNDS:
+        raise AssertionError(f"bounds differ from PERF.md's table: "
+                             f"{ {k: v for k, v in seen.items() if EXPECTED_BOUNDS.get(k) != v} }"
+                             f", missing {sorted(set(EXPECTED_BOUNDS) - set(seen))}")
+    log(f"  (a) {len(seen)} phase-2 bounds from kernels/costs.py, as PERF.md prints them")
+    step_rep = analysis_step()
+    cli_rep = analysis_cli(cli)
+    shares = timed_shares(timed)
+    return {**step_rep, "cli_secs": cli_rep["secs"], "shares": shares}
+
+
+def analysis_step() -> dict:
+    """Phase 13(b) (see ``phase_analysis``)."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import decode_attention, flash_attention
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.kernels import wkv6 as WKV
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_costs import analyze_step
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS
+    from repro_torch.utils.tree import flatten_with_names
+
+    cfg = get_config("qwen2-0.5b").replace(num_layers=STATE_LAYERS)
+    oc = adamw.OptConfig(warmup_steps=10, decay_steps=TRAIN_STEPS)
+    t0 = time.perf_counter()
+    walk, _ = dryrun.walk_cell(cfg, ShapeConfig("phase 6", "train", 128, 8), (1, 1),
+                               microbatches=1)
+    dry = {**walk.costs(), "memory": walk.memory}
+    dry_s = time.perf_counter() - t0
+    state = TS.init_train_state(cfg, oc, 0, "cuda")
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in SyntheticTokens(cfg, 8, 128).batch_at(0).items()}
+    step = TS.make_train_step(cfg, oc)
+    state, _ = step(state, batch)                # warm
+    torch.cuda.synchronize()
+    live = sum(x.numel() * x.element_size() for _, x in flatten_with_names([state, batch]))
+    mods = {"flash": flash_attention, "flash_decode": decode_attention, "ssd": SSD, "wkv6": WKV}
+    n0 = {k: m.launches for k, m in mods.items()}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    card = analyze_step(step, state, batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launched = {k: m.launches - n0[k] for k, m in mods.items() if m.launches - n0[k]}
+    calls = {k: v["calls"] for k, v in card["kernels"].items()}
+    dry_calls = {k: v["calls"] for k, v in dry["kernels"].items()}
+    predicted = dry["memory"]["argument_size"] + dry["memory"]["temp_size"]
+    log(f"  (b) qwen2-0.5b {STATE_LAYERS} layers B8 S128, a train step on the card under the "
+        f"walk ({card_s:.1f}s) and its dry run on meta ({dry_s:.1f}s): FLOPs {card['flops']:.0f}"
+        f" / {dry['flops']:.0f}; kernel calls {calls} / {dry_calls}, launches {launched}; "
+        f"bytes {card['bytes']:.0f} / {dry['bytes']:.0f}; arguments {live} live / "
+        f"{dry['memory']['argument_size']}; peak {peak} allocated / {predicted} predicted "
+        f"(arguments + {dry['memory']['temp_size']} temporaries), "
+        f"{100 * (predicted - peak) / peak:+.2f}%")
+    if card["flops"] != dry["flops"] or calls != dry_calls or calls != launched:
+        raise AssertionError(f"the card's step and its dry run differ: FLOPs {card['flops']} / "
+                             f"{dry['flops']}, calls {calls} / {dry_calls}, launches {launched}")
+    if live != dry["memory"]["argument_size"]:
+        raise AssertionError(f"argument bytes {dry['memory']['argument_size']} != the live "
+                             f"state's and batch's {live}")
+    if abs(predicted - peak) > PEAK_TOL * peak:
+        raise AssertionError(f"predicted peak {predicted} is not within {PEAK_TOL:.0%} of "
+                             f"the allocator's {peak}")
+    del state, batch, step
+    torch.cuda.empty_cache()
+    return {"card": {k: card[k] for k in ("flops", "bytes", "kernels")},
+            "dry_memory": dry["memory"], "peak": peak, "live": live}
+
+
+def analysis_cli(cli: "_AnalysisCLI") -> dict:
+    """Phase 13(c) (see ``phase_analysis``)."""
+    cli_rep = cli.wait()
+    rec = cli_rep["record"]
+    log(f"  (c) dryrun ({cli_rep['secs'][0]:.1f}s) and roofline ({cli_rep['secs'][1]:.1f}s) "
+        f"exit 0; qwen2-0.5b train_4k pod, rank 0 of 256: FLOPs {rec['hlo_costs']['flops']:.4g},"
+        f" bytes {rec['hlo_costs']['bytes']:.4g}, collectives {rec['hlo_costs']['collectives']},"
+        f" arguments {rec['memory']['argument_size']}, temporaries "
+        f"{rec['memory']['temp_size']}, walked in {rec['trace_s']}s")
+    for ln in cli_rep["output"].splitlines():
+        if ln.startswith("| qwen2-0.5b"):
+            log(f"      {ln}")
+    return cli_rep
+
+
+def timed_shares(timed: list) -> dict:
+    """Phase 13(d) (see ``phase_analysis``)."""
+    from repro_torch.launch.roofline import PEAK_FLOPS, model_flops
+
+    shares = {}
+    for label, c, kind, B, S, ms in timed:
+        if not math.isfinite(ms):
+            log(f"  (d) {label}: device time not measured, no share")
+            continue
+        shares[label] = model_flops(c, kind, B, S) / (ms / 1e3 * PEAK_FLOPS[c.compute_dtype])
+    log("  (d) model FLOPs over (device time x peak): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in shares.items()))
+    over = {k: v for k, v in shares.items() if v > SHARE_MAX}
+    if over:
+        raise AssertionError(f"shares above {SHARE_MAX}: {over}")
+    return shares
+
 
 def flatten_cache(specs, path=()):
     """(path, (shape, dtype)) of a ``models.model.cache_specs`` tree."""
@@ -2490,7 +2696,7 @@ def main() -> int:
                  "llava-next-mistral-7b"):
         phase_reference_train(arch)
     work = _work_dir()
-    ranks = None
+    ranks = cli = None
     try:
         phase(f"phase 6 the full-width train state ({STATE_LAYERS} layers): fingerprints, a "
               "profiled step, saves")
@@ -2519,6 +2725,8 @@ def main() -> int:
         mla_rep = phase_train_full("deepseek-v3-671b",
                                    get_config("deepseek-v3-671b").replace(**MLA_TRAIN_CUT),
                                    "deepseek-v3-671b 1 dense layer + MTP")
+        # phase 13(c)'s dry run and roofline (CPU subprocesses) run behind 11(c)
+        cli = _AnalysisCLI(work)
         phase(f"phase 11(c) the C/R cycle of granite-moe-3b-a800m at full width and "
               f"{MOE_CR_LAYERS} of 32 layers, in process: step, device-fp save, restore, "
               "next step")
@@ -2526,8 +2734,22 @@ def main() -> int:
         phase("phase 12 parallelism: the card's mesh and rules, the ring, the elastic restore "
               "across CPU ranks and the card")
         phase_parallel(work, ranks)
+        phase("phase 13 analysis: the bounds' formulas, a train step on the card under the "
+              "walk against its dry run, dryrun and roofline, the timed steps' shares")
+        timed = [(f"serve {arch} {kind}", rep_["cfg"], kind, 4, 512, rep_[kind]["busy_ms"])
+                 for arch, rep_ in profile_rep.items() for kind in ("prefill", "decode")]
+        timed.append((f"phase 6 train ({STATE_LAYERS} layers)", state_rep["cfg"], "train", 8,
+                       128, state_rep["device_ms"]))
+        for label, r in (("10(a) train zamba2-1.2b", full_rep["zamba2-1.2b"]),
+                         ("10(a) train rwkv6-1.6b", full_rep["rwkv6-1.6b"]),
+                         ("11(a) train granite-moe-3b-a800m", moe_rep),
+                         ("11(b) train deepseek-v3-671b cut", mla_rep)):
+            timed.append((label, r["cfg"], "train", 8, 128, r["device_ms"]))
+        phase_analysis(kern, timed, cli)
         phase("done")
     finally:
+        if cli is not None:
+            cli.kill()
         if ranks is not None:
             ranks.kill()
         shutil.rmtree(work, ignore_errors=True)

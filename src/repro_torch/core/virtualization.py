@@ -14,9 +14,19 @@ taking this rank's block of it: no communication.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.checkpoint.serialization import host_array, to_torch
 from repro_torch.parallel.mesh_rules import named_axes
 from repro_torch.utils.tree import tree_map, tree_map_with_path
+
+
+def _tensor(arr, device):
+    """A host array as a tensor on ``device``; a ``meta`` tensor (an abstract
+    leaf) as a new meta tensor of its shape, so no two leaves share one."""
+    if isinstance(arr, torch.Tensor) and arr.is_meta:
+        return torch.empty(arr.shape, dtype=arr.dtype, device="meta")
+    return to_torch(arr, device)
 
 
 def place_tree(host_tree, axes_tree, rules, device):
@@ -24,17 +34,19 @@ def place_tree(host_tree, axes_tree, rules, device):
     logical axes (``axes_tree``) split over ``rules``' mesh becomes a
     ``DTensor`` of the rules' placements, built from this rank's block; a
     leaf they replicate (every leaf on a mesh of one rank) stays a plain
-    tensor.  bfloat16 leaves become torch.bfloat16 with the same bits."""
+    tensor.  bfloat16 leaves become torch.bfloat16 with the same bits.  A
+    tree of ``meta`` tensors (``launch/specs.py``) is placed as meta
+    blocks, with no storage: the dry run's."""
     axes = dict(named_axes(axes_tree))
 
     def place(name, arr):
         shape = tuple(arr.shape)
         ax = axes[name]
         if rules.is_replicated(ax, shape):
-            return to_torch(arr, device)
+            return _tensor(arr, device)
         from torch.distributed.tensor import DTensor
 
-        local = to_torch(arr[rules.local_slices(ax, shape)], device)
+        local = _tensor(arr[rules.local_slices(ax, shape)], device)
         return DTensor.from_local(local, rules.mesh.device_mesh, rules.placements(ax, shape),
                                   run_check=False)
 

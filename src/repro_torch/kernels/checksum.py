@@ -13,7 +13,10 @@ tensors that hold the uint32 bits (``.view(torch.uint32)`` or numpy's
 ``.view(np.uint32)`` reads them as unsigned): int32 has every operation the
 callers need on every PyTorch build, uint32 does not.  For a tensor on the
 CPU a wrapper takes the plain version (``ref``); for a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises; for a ``meta`` tensor it returns an empty
+result of the kernel's shape and launches nothing.  A call charges
+``costs.chunk_fingerprints`` or ``costs.checksum`` to an active cost
+recorder.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, costs, ref
 
 WORD_DTYPES = (torch.int32, torch.uint32)
 
@@ -64,10 +67,11 @@ def _check(words: torch.Tensor, what: str) -> None:
         raise TypeError(f"{what}: words must be int32 or uint32, got {words.dtype}")
     if not words.is_contiguous():
         raise ValueError(f"{what}: words must be contiguous")
-    if words.device.type not in ("cpu", "cuda"):
+    if words.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{what}: no kernel for device {words.device}")
 
 
+@costs.charged("chunk_fingerprints", costs.chunk_fingerprints_call)
 def chunk_fingerprints(words: torch.Tensor, chunk_words: int) -> torch.Tensor:
     """(N,) words -> (ceil(N / chunk_words),) int32 (uint32 bits), one value
     per chunk; the tail chunk reads as zero-padded."""
@@ -78,7 +82,7 @@ def chunk_fingerprints(words: torch.Tensor, chunk_words: int) -> torch.Tensor:
         return ref.chunk_fingerprints(words, chunk_words)
     n = words.numel()
     out = torch.empty((-(-n // chunk_words),), dtype=torch.int32, device=words.device)
-    if n == 0:
+    if n == 0 or out.is_meta:
         return out
     fp, _, err_str = _kernels()
     err = fp(words.data_ptr(), n, chunk_words, out.data_ptr(),
@@ -89,6 +93,7 @@ def chunk_fingerprints(words: torch.Tensor, chunk_words: int) -> torch.Tensor:
     return out
 
 
+@costs.charged("checksum", costs.checksum_call)
 def checksum(words: torch.Tensor, block: int = 2048) -> torch.Tensor:
     """(N,) words -> 0-d int32 (uint32 bits): the digest of the stream
     zero-padded to a multiple of ``block``; 0 for an empty stream."""
@@ -98,6 +103,8 @@ def checksum(words: torch.Tensor, block: int = 2048) -> torch.Tensor:
     n = words.numel()
     if n == 0:
         return torch.zeros((), dtype=torch.int32, device=words.device)
+    if words.is_meta:
+        return torch.empty((), dtype=torch.int32, device=words.device)
     padded = -(-n // block) * block
     if words.device.type == "cpu":
         return ref.checksum(torch.cat([words.view(torch.int32),

@@ -14,7 +14,10 @@ then a second launch on the same stream combines their partials in a fixed
 order (the source's header says how).  The split depends on the cache's
 length alone: never on ``kv_len``, which stays on the device, and never on
 the card, so a cache restored on another card decodes to the same bits.
-The partials go to a workspace allocated for each call.
+The partials go to a workspace allocated for each call.  For ``meta``
+tensors the wrapper returns an empty output of the kernel's shape and
+dtype and launches nothing; a call charges ``costs.flash_decode`` to an
+active cost recorder.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, costs, ref
 from repro_torch.kernels.flash_attention import DTYPES, SUPPORTED_DIMS as FLASH_DIMS
 
 # head-dim pairs (Dq, Dv) the kernel is instantiated for: flash's, and MLA's
@@ -127,6 +130,7 @@ def _check(q, k, v):
         raise ValueError("flash_decode: tensor too large")
 
 
+@costs.charged("flash_decode", costs.flash_decode_call)
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  kv_len=None, scale=None) -> torch.Tensor:
     """q: (B,1,H,Dq); k: (B,S,Hkv,Dq); v: (B,S,Hkv,Dv) -> (B,1,H,Dv).
@@ -141,7 +145,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_decode: q, k, v on different devices {devices}")
     if q.device.type == "cpu":
         return ref.attention(q, k, v, causal=False, kv_len=kv_len, scale=scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_decode: no kernel for device {q.device}")
     _check(q, k, v)
     B, _, H, Dq = q.shape
@@ -150,7 +154,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         scale = 1.0 / float(np.sqrt(Dq))
     kvl = _kv_len_tensor(kv_len, S, q.device)
     out = torch.empty((B, 1, H, Dv), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
+    if out.numel() == 0 or out.is_meta:
         return out
     fn, err_str, _ = _kernel()
     G = H // Hkv

@@ -5,7 +5,10 @@ The source's header says how the Hopper design differs from the TPU one.
 For a tensor on the CPU the wrapper takes the plain version
 (``ref.attention``), which autograd differentiates directly; for a CUDA
 tensor it launches the kernel or raises, and under autograd the kernel's
-output gets the plain version's gradient (``_Flash``).
+output gets the plain version's gradient (``_Flash``).  For a ``meta``
+tensor it returns an empty output of the kernel's shape and dtype and
+launches nothing (the dry run of ``launch/dryrun.py``).  A call charges
+``costs.flash`` to an active cost recorder.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, costs, ref
 
 # head-dim pairs (Dq, Dv) the kernel is instantiated for
 SUPPORTED_DIMS = frozenset([(dq, dv) for dq in (32, 64, 128) for dv in (32, 64, 128)]
@@ -64,6 +67,7 @@ def _check(q, k, v):
         raise ValueError("flash: tensor too large")
 
 
+@costs.charged("flash", costs.flash_call)
 def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
           causal: bool = True, scale=None) -> torch.Tensor:
     """q: (B,Sq,H,Dq); k: (B,Skv,Hkv,Dq); v: (B,Skv,Hkv,Dv) -> (B,Sq,H,Dv).
@@ -80,7 +84,7 @@ def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash: q, k, v on different devices {devices}")
     if q.device.type == "cpu":
         return ref.attention(q, k, v, causal=causal, scale=scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash: no kernel for device {q.device}")
     _check(q, k, v)
     if scale is None:
@@ -114,7 +118,7 @@ def _launch(q, k, v, causal: bool, scale: float) -> torch.Tensor:
     B, Sq, H, Dq = q.shape
     Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
+    if out.numel() == 0 or out.is_meta:
         return out
     fn, err_str = _kernel()
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -3,7 +3,8 @@
 A CUDA tensor goes to the hand-written kernel (``flash`` for a sequence,
 ``flash_decode`` for one token against a cache, ``ssd`` and ``wkv6`` for the
 SSM scans, ``chunk_fingerprints`` and ``checksum`` for word streams); a CPU
-tensor goes to the plain version in ``ref`` (each wrapper makes that
+tensor goes to the plain version in ``ref``, and a ``meta`` tensor to the
+kernel's shapes with no launch, the dry run's (each wrapper makes that
 choice).  ``impl`` keeps the reference
 package's names:
 
@@ -44,9 +45,9 @@ def _resolve(impl, device: torch.device, what: str) -> str:
     if impl not in KERNEL_IMPLS + PLAIN_IMPLS:
         raise ValueError(f"{what} impl {impl!r} is not available in this package; "
                          f"choose from {KERNEL_IMPLS + PLAIN_IMPLS}")
-    if device.type == "cuda" and impl in PLAIN_IMPLS:
+    if device.type in ("cuda", "meta") and impl in PLAIN_IMPLS:
         raise ValueError(f"{what} impl {impl!r} is the plain version, which runs "
-                         "on CPU tensors only; CUDA tensors go through the kernel")
+                         "on CPU tensors only; CUDA (and meta) tensors go through the kernel")
     return impl
 
 

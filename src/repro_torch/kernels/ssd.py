@@ -8,7 +8,10 @@ says how the Hopper design differs from the TPU one.  For tensors on the
 CPU the wrapper takes the plain version (``ref.ssd``, the sequential
 recurrence), which autograd differentiates directly; for CUDA tensors it
 launches the kernel or raises, and under autograd the kernel's output gets
-the plain version's gradient (``_SSD``).
+the plain version's gradient (``_SSD``).  For ``meta`` tensors it returns
+empty outputs of the kernel's shapes and dtypes (the final state
+included) and launches nothing; a call charges ``costs.ssd`` to an active
+cost recorder.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, costs, ref
 from repro_torch.kernels.decode_attention import MAX_SMEM_BYTES
 from repro_torch.kernels.flash_attention import DTYPES
 
@@ -66,6 +69,7 @@ def _check(x, dt, A_log, Bm, Cm, D, init_state):
         raise ValueError("ssd: tensor too large")
 
 
+@costs.charged("ssd", costs.ssd_call)
 def ssd(x, dt, A_log, Bm, Cm, D, *, init_state=None, return_state=False):
     """Contract of ``ref.ssd``: x (B,S,H,P), dt (B,S,H), A_log (H,), Bm/Cm
     (B,S,N), D (H,), init_state (B,H,P,N) fp32 or None -> y (B,S,H,P) in
@@ -77,7 +81,7 @@ def ssd(x, dt, A_log, Bm, Cm, D, *, init_state=None, return_state=False):
     if x.device.type == "cpu":
         return ref.ssd(x, dt, A_log, Bm, Cm, D, init_state=init_state,
                        return_state=return_state)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"ssd: no kernel for device {x.device}")
     _check(x, dt, A_log, Bm, Cm, D, init_state)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
@@ -120,6 +124,10 @@ def _launch(x, dt, A_log, Bm, Cm, D, init_state, return_state):
     D = D.to(torch.float32).contiguous()
     if init_state is not None:
         init_state = init_state.to(torch.float32).contiguous()
+    if x.is_meta:
+        y = torch.empty_like(x)
+        state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+        return (y, state) if return_state else y
     if x.numel() == 0:
         state = (init_state.clone() if init_state is not None else
                  torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device))

@@ -10,7 +10,10 @@ overflows at rwkv6's own decay initialisation (the source's header says
 more).  For tensors on the CPU the wrapper takes the plain version
 (``ref.wkv6``), which autograd differentiates directly; for CUDA tensors it
 launches the kernel or raises, and under autograd the kernel's output gets
-the plain version's gradient (``_WKV6``).
+the plain version's gradient (``_WKV6``).  For ``meta`` tensors it returns
+empty outputs of the kernel's shapes and dtypes (the final state
+included) and launches nothing; a call charges ``costs.wkv6`` to an active
+cost recorder.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, costs, ref
 from repro_torch.kernels.flash_attention import DTYPES
 
 HEAD_DIMS = (16, 32, 64, 128)     # head dims the kernel is instantiated for
@@ -64,6 +67,7 @@ def _check(r, k, v, w, u, init_state):
         raise ValueError("wkv6: tensor too large")
 
 
+@costs.charged("wkv6", costs.wkv6_call)
 def wkv6(r, k, v, w, u, *, init_state=None, return_state=False):
     """Contract of ``ref.wkv6``: r/k/v/w (B,S,H,D), u (H,D), init_state
     (B,H,D,D) fp32 or None -> y (B,S,H,D) in r's dtype, and the fp32 final
@@ -74,7 +78,7 @@ def wkv6(r, k, v, w, u, *, init_state=None, return_state=False):
         raise ValueError(f"wkv6: inputs on different devices {devices}")
     if r.device.type == "cpu":
         return ref.wkv6(r, k, v, w, u, init_state=init_state, return_state=return_state)
-    if r.device.type != "cuda":
+    if r.device.type not in ("cuda", "meta"):
         raise ValueError(f"wkv6: no kernel for device {r.device}")
     _check(r, k, v, w, u, init_state)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
@@ -117,6 +121,8 @@ def _launch(r, k, v, w, u, init_state, return_state):
         init_state = init_state.to(torch.float32).contiguous()
     y = torch.empty_like(r)
     state = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
+    if r.is_meta:
+        return (y, state) if return_state else y
     if r.numel() == 0:
         state.copy_(init_state if init_state is not None else torch.zeros_like(state))
         return (y, state) if return_state else y

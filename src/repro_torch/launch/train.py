@@ -42,6 +42,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import argparse  # noqa: E402
 import json  # noqa: E402
+import signal  # noqa: E402
 import sys  # noqa: E402
 import time  # noqa: E402
 from pathlib import Path  # noqa: E402
@@ -347,4 +348,9 @@ def _run(args, device: torch.device, trap: SignalTrap) -> int:
 
 
 if __name__ == "__main__":
+    # ignored outside ``main``'s trap, which puts this back when it returns: a
+    # scheduler's warning that lands once the run is over must not kill the
+    # process on its way out (the exit code is the run's)
+    for sig in SignalTrap().signals:
+        signal.signal(sig, signal.SIG_IGN)
     sys.exit(main())

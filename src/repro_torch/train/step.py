@@ -215,6 +215,7 @@ def make_train_step(cfg: ModelConfig, oc: adamw.OptConfig, *,
     def _step(state: dict, batch: dict):
         params = state["params"]
         full = tree_map(full_tensor, params)
+        batch = tree_map(full_tensor, batch)        # a placed batch is taken whole
         B = batch["tokens"].shape[0]
         mb_count = effective_microbatches(B, microbatches, rules.axis_group_size("batch"))
         if mb_count == 1:

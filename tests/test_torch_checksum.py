@@ -18,6 +18,21 @@ from repro_torch.checkpoint import serialization as SER
 from repro_torch.kernels import checksum as CK
 from repro_torch.kernels import ops, ref
 
+
+class _Elsewhere(torch.Tensor):
+    """A tensor with no storage on a device the wrappers have no path for
+    (the meta device has one: the dry run's)."""
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"{func} on a tensor with no storage")
+
+
+def _elsewhere(shape, dtype=torch.float32):
+    return torch.Tensor._make_wrapper_subclass(_Elsewhere, shape, dtype=dtype,
+                                               device=torch.device("xpu"))
+
+
 CHUNK = 256                       # 64 words: a power of two, as the kernels want
 
 
@@ -117,7 +132,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         CK.chunk_fingerprints(torch.zeros(16, dtype=torch.int32)[::2], 8)
     with pytest.raises(ValueError, match="no kernel for device"):
-        CK.checksum(torch.zeros(8, dtype=torch.int32, device="meta"))
+        CK.checksum(_elsewhere((8,), torch.int32))
     with pytest.raises(ValueError, match="not available"):
         ops.checksum(torch.zeros(8, dtype=torch.int32), impl="pallas_interpret")
 

@@ -18,6 +18,8 @@ def _forbidden(module: str) -> bool:
 
 
 def test_serve_import_loads_no_jax_and_no_repro():
+    """Importing every module of the package (the examples and the analysis
+    tools among them) loads neither and starts no process group."""
     code = (
         "import sys, pkgutil, importlib, repro_torch\n"
         "import repro_torch.launch.serve\n"
@@ -25,8 +27,14 @@ def test_serve_import_loads_no_jax_and_no_repro():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n")
+        "import torch.distributed as dist\n"
+        "group = dist.is_available() and dist.is_initialized()\n"
+        "for want in ('repro_torch.examples.elastic_restart', 'repro_torch.launch.dryrun', "
+        "'repro_torch.launch.hlo_costs', 'repro_torch.launch.roofline', "
+        "'repro_torch.launch.specs', 'repro_torch.kernels.costs'):\n"
+        "    assert want in sys.modules, want\n"
+        "print(bad, 'process group started' if group else '')\n"
+        "sys.exit(1 if bad or group else 0)\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                        text=True, timeout=300)

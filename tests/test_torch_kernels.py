@@ -20,6 +20,21 @@ from repro_torch.kernels import ssd as SSD
 from repro_torch.kernels import wkv6 as WKV
 from repro_torch.kernels.xla_attention import causal_blockwise
 
+
+class _Elsewhere(torch.Tensor):
+    """A tensor with no storage on a device the wrappers have no path for
+    (the meta device has one: the dry run's)."""
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"{func} on a tensor with no storage")
+
+
+def _elsewhere(shape, dtype=torch.float32):
+    return torch.Tensor._make_wrapper_subclass(_Elsewhere, shape, dtype=dtype,
+                                               device=torch.device("xpu"))
+
+
 TOL = {"float32": 2e-5, "bfloat16": 5e-2}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -547,14 +562,14 @@ def test_ops_plain_impls_run_on_cpu():
 
 
 def test_ops_refuses_devices_without_a_path():
-    q = torch.empty(1, 4, 2, 32, device="meta")
+    q = _elsewhere((1, 4, 2, 32))
     with pytest.raises(ValueError, match="no kernel for device"):
         ops.attention(q, q, q)
 
 
 @pytest.mark.parametrize("wrapper", [flash_attention.flash, decode_attention.flash_decode])
 def test_wrappers_refuse_other_devices(wrapper):
-    q = torch.empty(1, 1, 2, 32, device="meta")
+    q = _elsewhere((1, 1, 2, 32))
     with pytest.raises(ValueError, match="no kernel for device"):
         wrapper(q, q, q)
 
@@ -653,7 +668,7 @@ def _wkv_args(B, S, H, D, dtype=torch.float32, device="cpu", seed=0):
 @pytest.mark.parametrize("wrapper,make", [(SSD.ssd, lambda: _ssd_args(1, 4, 2, 8, 8)[0]),
                                           (WKV.wkv6, lambda: _wkv_args(1, 4, 2, 16)[0])])
 def test_scan_wrappers_refuse_other_devices(wrapper, make):
-    args = [t.to("meta") for t in make()]
+    args = [_elsewhere(tuple(t.shape), t.dtype) for t in make()]
     with pytest.raises(ValueError, match="no kernel for device"):
         wrapper(*args)
 
