@@ -104,9 +104,12 @@ Phases, in order; any failure exits non-zero:
    within 5e-2 (bfloat16) of the plain version, with both device times; (c) the reference's elastic scenario (tests/test_elastic.py,
    reduced llama3.2-1b) across the card: two CPU ranks over gloo at mesh
    (2, 1) train three steps and save, then restore the save at (2, 1) and at
-   (1, 2) and take step 4; the card restores it and takes step 4 too; every
-   step-4 loss within 5e-4 of the (2, 1) restore's, and the card's re-save
-   of the restored state keeps the CPU save's chunk hashes bit for bit;
+   (1, 2) and take step 4, the (1, 2) step on each rank's "model" blocks
+   (``parallel/tp.py``: attention, SwiGLU, embedding and the vocabulary's
+   cross entropy split over the two ranks; its count of block products
+   above 0); the card restores it and takes step 4 too; every step-4 loss
+   within 5e-4 of the (2, 1) restore's, and the card's re-save of the
+   restored state keeps the CPU save's chunk hashes bit for bit;
 13. analysis: (a) phase 2's bounds read as PERF.md's table prints them
    (EXPECTED_BOUNDS); (b) a train step of qwen2-0.5b at full width and 8
    layers on the card under ``launch/hlo_costs.py``'s walk against the dry
@@ -115,7 +118,11 @@ Phases, in order; any failure exits non-zero:
    peak within 25% of the allocator's; (c) ``python -m
    repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k --mesh pod``
    and ``python -m repro_torch.launch.roofline`` as CPU subprocesses
-   (started with phase 11(c)) exit 0 with an ok record; (d) each step the
+   (started with phase 11(c)) exit 0 with an ok record, whose step computes
+   on "model" blocks: FLOPs a rank at most 1.0e14 and 6ND/walk at least
+   0.11 (the step that gathered every parameter whole: 2.751e14 and 0.04),
+   and the gradients' collectives (the walk's "grads" section) at most 1/8
+   of that step's 7.9 GB a rank; (d) each step the
    earlier phases time on the device (5, 6, 10(a), 11(a)-(b)) as a share of
    the peak: model FLOPs over (device time x peak), none above 1.05.
 
@@ -2215,6 +2222,7 @@ def gloo_child(argv: list) -> int:
         from repro_torch.core.virtualization import fetch_tree, place_tree
         from repro_torch.data.pipeline import SyntheticTokens
         from repro_torch.launch.mesh import make_mesh
+        from repro_torch.parallel import tp
         from repro_torch.parallel.mesh_rules import Rules
         from repro_torch.train import step as TS
         from repro_torch.utils.tree import flatten_with_names
@@ -2239,12 +2247,15 @@ def gloo_child(argv: list) -> int:
         _elastic_save(work / "cpu-save", state, rank)
         dist.barrier()
         del state
+        rep["block_products"] = {}
         for shape in ((2, 1), (1, 2)):
             mesh = make_mesh(shape)
             rules = Rules(mesh)
             state = _elastic_restore(work / "cpu-save", rules, "cpu")
+            tp.COUNTS["block_products"] = 0
             state, m = TS.make_train_step(cfg, oc, rules=rules)(state, batch(pipe.batch_at(3)))
             rep["step4"][str(shape)] = float(m["loss"])
+            rep["block_products"][str(shape)] = tp.COUNTS["block_products"]
         rep["s"] = time.perf_counter() - t0
         if rank == 0:
             print(json.dumps(rep), flush=True)
@@ -2403,11 +2414,16 @@ def phase_parallel(work: Path, ranks: "_GlooGroup") -> dict:
         f"({cpu['split_leaves']} leaves split) and save, then restore at (2, 1) and (1, 2) "
         f"[{cpu['s']:.1f}s from their mesh to their last step; started with phase 11(b), "
         f"done {ranks_s:.1f}s later]; "
-        f"step-4 loss at (2, 1) {base!r}, at (1, 2) {other!r}, on the card {card4!r} (restore "
+        f"step-4 loss at (2, 1) {base!r}, at (1, 2) {other!r} (products on a \"model\" block: "
+        f"{cpu['block_products']['(1, 2)']} at (1, 2), {cpu['block_products']['(2, 1)']} at "
+        f"(2, 1)), on the card {card4!r} (restore "
         f"{restore_s:.2f}s, flash launches {card_flash}; tol {ELASTIC_TOL}); the card's "
         f"re-save keeps the CPU save's chunk hashes: {same_hashes}")
     if not same_hashes:
         raise AssertionError("the card's re-save of the restored state changed its chunks")
+    if cpu["block_products"]["(1, 2)"] <= 0 or cpu["block_products"]["(2, 1)"]:
+        raise AssertionError(f"the (1, 2) step did not compute on model blocks: "
+                             f"{cpu['block_products']}")
     if not on_card or abs(card4 - base) > ELASTIC_TOL or abs(other - base) > ELASTIC_TOL:
         raise AssertionError(f"step 4 differs across meshes: {cpu['step4']}, card {card4}")
     if card_flash != cfg.num_layers or not math.isfinite(card4):
@@ -2454,6 +2470,12 @@ ANALYSIS_CLI = (["repro_torch.launch.dryrun", "--arch", "qwen2-0.5b", "--shape",
                  "--mesh", "pod"],
                 ["repro_torch.launch.roofline"])
 ANALYSIS_DEADLINE_S = 240
+# (c): the record's step on "model" blocks, against the step that gathered
+# every parameter whole (2.751e14 FLOPs a rank, 6ND/walk 0.04, 7.9 GB of
+# whole float32 gradients all-reduced a rank a step)
+TP_FLOPS_MAX = 1.0e14
+TP_USEFUL_MIN = 0.11
+TP_GRAD_BYTES_MAX = 7.9e9 / 8
 PEAK_TOL = 0.25          # (b): the dry run's peak against the allocator's
 SHARE_MAX = 1.05         # (d): model FLOPs over (device time x peak)
 
@@ -2533,7 +2555,8 @@ def phase_analysis(kern: dict, timed: list, cli: "_AnalysisCLI") -> dict:
     step_rep = analysis_step()
     cli_rep = analysis_cli(cli)
     shares = timed_shares(timed)
-    return {**step_rep, "cli_secs": cli_rep["secs"], "shares": shares}
+    return {**step_rep, "cli_secs": cli_rep["secs"], "shares": shares,
+            "tp": {k: cli_rep[k] for k in ("flops", "useful", "grad_bytes")}}
 
 
 def analysis_step() -> dict:
@@ -2611,6 +2634,18 @@ def analysis_cli(cli: "_AnalysisCLI") -> dict:
     for ln in cli_rep["output"].splitlines():
         if ln.startswith("| qwen2-0.5b"):
             log(f"      {ln}")
+    from repro_torch.launch.roofline import analyze_cell
+
+    flops = rec["hlo_costs"]["flops"]
+    useful = analyze_cell(rec)["useful_ratio"]
+    grads = rec["hlo_costs"]["section_collective_bytes"].get("grads", 0.0)
+    log(f"      on \"model\" blocks: FLOPs a rank {flops:.4g} (at most {TP_FLOPS_MAX:.4g}), "
+        f"6ND/walk {useful:.4f} (at least {TP_USEFUL_MIN}), the gradients' collectives "
+        f"{grads:.4g} B a rank a step (at most {TP_GRAD_BYTES_MAX:.4g})")
+    if flops > TP_FLOPS_MAX or useful < TP_USEFUL_MIN or grads > TP_GRAD_BYTES_MAX:
+        raise AssertionError(f"the dry run's step is not split over 'model': FLOPs {flops}, "
+                             f"6ND/walk {useful}, gradient collectives {grads}")
+    cli_rep.update(flops=flops, useful=useful, grad_bytes=grads)
     return cli_rep
 
 

@@ -59,6 +59,20 @@ def full_tensor(x):
     return x.full_tensor() if hasattr(x, "full_tensor") else x
 
 
+def gather_over(x, mesh_axes):
+    """A leaf gathered over the named mesh axes only (a ``DTensor``: every
+    rank of those axes' groups must call), as a plain tensor: this rank's
+    block along every other axis (the "model" block, where ``mesh_axes`` are
+    the others); anything else as it is."""
+    if not hasattr(x, "redistribute"):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    names = x.device_mesh.mesh_dim_names
+    return x.redistribute(placements=[Replicate() if n in mesh_axes else pl
+                                      for n, pl in zip(names, x.placements)]).to_local()
+
+
 def fetch_tree(device_tree):
     """Tree of tensors -> host (numpy) tree, each ``DTensor`` gathered whole
     first (a collective: every rank calls), bfloat16 as its raw 2-byte

@@ -36,6 +36,18 @@ def recording(recorder):
         _RECORDER.reset(token)
 
 
+@contextlib.contextmanager
+def section(name: str):
+    """Mark what runs inside the block as ``name``'s, for an active recorder
+    that keeps sections (the walk's ``section``); otherwise nothing."""
+    rec = _RECORDER.get()
+    if rec is None or not hasattr(rec, "section"):
+        yield
+        return
+    with rec.section(name):
+        yield
+
+
 def charged(name: str, cost):
     """Decorator of a kernel wrapper: while a recorder is active, a call is
     charged ``cost(*args, **kwargs)`` = (flops, bytes) as kernel ``name``."""

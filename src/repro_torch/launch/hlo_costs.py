@@ -137,6 +137,7 @@ class Walk(TorchDispatchMode):
         super().__init__()
         self._rows: dict = {}
         self._inside = 0                  # depth of kernel wrapper calls
+        self._section = None              # the ``costs.section`` the ops run in
         self._refs: dict = {}             # storage key -> weak reference
         self._live = 0
         self.peak = 0
@@ -171,12 +172,21 @@ class Walk(TorchDispatchMode):
     # -- the recorder of kernels/costs.py -----------------------------------------
     @contextlib.contextmanager
     def kernel(self, name: str, flops: int, nbytes: int):
-        self._row((name, "kernel", (), (), (), int(flops), False, None, int(nbytes)))
+        self._row((name, "kernel", (), (), (), int(flops), False, None, int(nbytes),
+                   self._section))
         self._inside += 1
         try:
             yield
         finally:
             self._inside -= 1
+
+    @contextlib.contextmanager
+    def section(self, name: str):
+        outer, self._section = self._section, name
+        try:
+            yield
+        finally:
+            self._section = outer
 
     # -- the dispatch mode -----------------------------------------------------------
     def _row(self, key) -> None:
@@ -203,7 +213,7 @@ class Walk(TorchDispatchMode):
         self._row((name, "op" if coll is None else "collective",
                    tuple(_nbytes(t) for t in ins), tuple(written),
                    tuple(_nbytes(t) for t in _tensors(out)), flops, bool(func.is_view),
-                   coll, 0))
+                   coll, 0, self._section))
         return out
 
     def __enter__(self):
@@ -229,10 +239,12 @@ class Walk(TorchDispatchMode):
         """One row per distinct op: name, kind (op, collective, kernel), the
         bytes of its tensor inputs, of the inputs it writes, of its outputs,
         its FLOPs, whether it is a view, its collective (kind, bytes), a
-        kernel's bytes, and how many times it ran."""
+        kernel's bytes, the ``costs.section`` it ran in (or None), and how
+        many times it ran."""
         return [{"op": k[0], "kind": k[1], "in": list(k[2]), "written": list(k[3]),
                  "out": list(k[4]), "flops": k[5], "view": k[6],
-                 "collective": list(k[7]) if k[7] else None, "kernel_bytes": k[8], "n": n}
+                 "collective": list(k[7]) if k[7] else None, "kernel_bytes": k[8],
+                 "section": k[9], "n": n}
                 for k, n in self._rows.items()]
 
     def costs(self) -> dict:
@@ -257,10 +269,12 @@ def _op_bytes(row: dict) -> int:
 
 def costs_from_table(table: list[dict]) -> dict:
     """The reference's keys (``hlo_costs.py:analyze_hlo_text``) from a per-op
-    table, plus the kernels' calls, FLOPs and bytes and the collectives'
-    counts by kind."""
+    table, plus the kernels' calls, FLOPs and bytes, the collectives'
+    counts by kind, and the collectives' bytes by ``costs.section`` (the
+    train step's gradient reduction is "grads")."""
     totals = {"flops": 0.0, "bytes": 0.0, "unknown_while": 0}
     coll = defaultdict(float)
+    sections = defaultdict(float)
     coll_n = defaultdict(int)
     kernels = defaultdict(lambda: {"calls": 0, "flops": 0.0, "bytes": 0.0})
     coll_rows, byte_rows = [], []
@@ -278,6 +292,8 @@ def costs_from_table(table: list[dict]) -> dict:
             kind, cb = row["collective"]
             coll[kind] += cb * n
             coll_n[kind] += n
+            if row.get("section"):
+                sections[row["section"]] += cb * n
             coll_rows.append((cb * n, f"{kind} {row['op']} {row['in'][:2]} x{n}"))
         if b:
             byte_rows.append((b, f"{row['op']} in {row['in'][:3]} out {row['out'][:2]} x{n}"))
@@ -286,6 +302,7 @@ def costs_from_table(table: list[dict]) -> dict:
     totals["collective_counts"] = dict(coll_n)
     totals["collective_bytes"] = float(sum(coll.values()))
     totals["collective_bytes_native"] = totals["collective_bytes"]
+    totals["section_collective_bytes"] = dict(sections)
     coll_rows.sort(key=lambda r: -r[0])
     totals["top_collectives"] = [f"{b:.3e}B {d}" for b, d in coll_rows[:10]]
     byte_rows.sort(key=lambda r: -r[0])

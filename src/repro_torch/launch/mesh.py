@@ -55,9 +55,9 @@ class Mesh:
         """The process group of the ranks that differ from this one only along
         ``axes`` (their grid order is the group's rank order), or ``None``
         when those axes hold a single rank."""
-        axes = tuple(a for a in axes if a in self.axis_names)
         sizes = dict(zip(self.axis_names, self.shape))
-        if math.prod(sizes[a] for a in axes) == 1:
+        axes = tuple(a for a in axes if sizes.get(a, 1) > 1)   # an axis of one rank adds none
+        if not axes:
             return None
         if self.device_mesh is None:
             raise ValueError(f"the abstract mesh {self} has no process groups")

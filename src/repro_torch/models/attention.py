@@ -17,6 +17,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamSpec
+from repro_torch.parallel import tp
 
 
 def gqa_spec(cfg: ModelConfig) -> dict:
@@ -47,14 +48,73 @@ def _project_qkv(p, cfg: ModelConfig, x, positions, dt):
     return q, k, v
 
 
+def _heads(t, B, S, Dh, blk: bool, count: int, tpn: int, r: int):
+    """A projection's output as (B, S, heads, Dh) and its first head: this
+    rank's ``count / tpn`` heads where it is a block that splits at head
+    boundaries, else every head (a block gathered over "model" first)."""
+    if blk and count % tpn == 0:
+        return t.reshape(B, S, count // tpn, Dh), r * (count // tpn)
+    if blk:
+        t = tp.gather_from_model(t, -1)
+    return t.reshape(B, S, count, Dh), 0
+
+
 def gqa_full(p, cfg: ModelConfig, x, positions, impl=None):
-    """x: (B,S,D) -> (out, kv) ; kv returned for prefill cache construction."""
+    """x: (B,S,D) -> (out, kv) ; kv returned for prefill cache construction.
+
+    Where the step computes on "model" blocks (``tp.on_blocks``), the
+    projections whose weights are blocks run on them, as the reference's
+    ``heads_dim`` / ``kv_heads_dim`` hints resolve: q keeps this rank's heads
+    where H divides the axis, else it is gathered and every head is
+    attended; k and v keep theirs where Hkv divides it, else they are
+    gathered and the kv heads of this rank's q heads (q head h reads kv head
+    h // (H / Hkv)) are sliced out; ``wo`` is row-parallel over the heads
+    attended here, or over its own block of them where every head was.  On
+    whole weights every step of that is the identity."""
     dt = L.torch_dtype(cfg.compute_dtype)
     B, S, _ = x.shape
-    q, k, v = _project_qkv(p, cfg, x, positions, dt)
+    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    spec = gqa_spec(cfg) if tp.on_blocks() else None
+    blk = {n: spec is not None and tp.block_dim(p[n]["w"], spec[n]["w"]) is not None
+           for n in ("wq", "wk", "wv", "wo")}
+    r, tpn = tp.model_rank_size() if spec is not None else (0, 1)
+    xc = tp.copy_to_model(x) if blk["wq"] or blk["wk"] or blk["wv"] else x
+
+    def proj(n):
+        return L.linear(p[n], xc if blk[n] else x, dt, spec and spec[n])
+
+    q, q0 = _heads(proj("wq"), B, S, Dh, blk["wq"], H, tpn, r)
+    k, k0 = _heads(proj("wk"), B, S, Dh, blk["wk"], Hkv, tpn, r)
+    v, _ = _heads(proj("wv"), B, S, Dh, blk["wv"], Hkv, tpn, r)
+    if cfg.qk_norm:
+        # a scale read by this rank's heads only has a partial gradient here
+        def norm(name, t, heads):
+            scale = p[name]["scale"]
+            if t.shape[2] != heads:
+                scale = tp.copy_to_model(scale)
+            return L.rms_norm({"scale": scale}, t, cfg.norm_eps)
+
+        q, k = norm("q_norm", q, H), norm("k_norm", k, Hkv)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    hq, g = q.shape[2], H // Hkv
+    lo, hi = q0 // g, (q0 + hq - 1) // g + 1           # the kv heads of this rank's q heads
+    if (k0, k.shape[2]) != (lo, hi - lo):
+        if hi - lo > 1 and (q0 % g or hq % g):
+            raise ValueError(f"q heads {q0}..{q0 + hq - 1} of {H} do not read an even "
+                             f"share each of the {Hkv} kv heads")
+        if k.shape[2] != Hkv:                          # this rank's kv heads, not those
+            k, v = tp.gather_from_model(k, 2), tp.gather_from_model(v, 2)
+        if hq != H:                                    # slices of whole k, v: their
+            k, v = tp.copy_to_model(k), tp.copy_to_model(v)    # gradients summed
+        k, v = k[:, :, lo:hi].contiguous(), v[:, :, lo:hi].contiguous()
     out = ops.attention(q, k, v, causal=True, impl=impl or cfg.attn_impl)
-    out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
-    return L.linear(p["wo"], out, dt), (k, v)
+    out = out.reshape(B, S, hq * Dh)
+    if blk["wo"] and hq == H:
+        out = tp.scatter_to_model(out, -1)
+    elif not blk["wo"] and hq != H:
+        out = tp.gather_from_model(out, -1)
+    return L.linear(p["wo"], out, dt, spec and spec["wo"]), (k, v)
 
 
 def gqa_decode(p, cfg: ModelConfig, x, cache_k, cache_v, t, impl=None):

@@ -24,6 +24,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as R
 from repro_torch.models import ssm as S
+from repro_torch.parallel import tp
 from repro_torch.utils.tree import tree_map
 
 ATTN_KINDS = ("attn_dense", "attn_moe", "mla_dense", "mla_moe")
@@ -100,7 +101,8 @@ def _ffn(kind, p, cfg: ModelConfig, xn, moe_groups: int, dt, batch_group=None):
     """The block's FFN: (out, the MoE aux loss or None)."""
     if kind.endswith("moe"):
         return MOE.moe_ffn(p, cfg, xn, moe_groups, batch_group)
-    return L.swiglu(p, xn, dt), None
+    spec = L.swiglu_spec(cfg.d_model, cfg.d_ff) if tp.on_blocks() else None
+    return L.swiglu(p, xn, dt, spec), None
 
 
 def block_full(kind, p, cfg: ModelConfig, h, positions, *, moe_groups=16,

@@ -13,11 +13,11 @@ import itertools
 import os
 import zlib
 from concurrent.futures import ThreadPoolExecutor
-
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel import tp
 from repro_torch.utils.tree import tree_map_with_path
 
 
@@ -179,12 +179,24 @@ def linear_spec(d_in: int, d_out: int, in_ax, out_ax, bias: bool = False,
     return s
 
 
-def linear(p, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+def linear(p, x: torch.Tensor, compute_dtype=None, spec=None) -> torch.Tensor:
+    """``x @ w (+ b)``.  ``spec``: the layer's ``linear_spec``, passed only
+    where the step computes on blocks (``tp.on_blocks``).  Where ``p`` holds
+    this rank's "model" block of its weight (``tp.block_dim``), the
+    product runs on the block: split along the output dim (column-parallel)
+    it gives this rank's block of the output, and ``x`` must come through
+    ``tp.copy_to_model``; split along the input dim (row-parallel) ``x`` is
+    the matching block of the input and the output is summed over "model"."""
     w = p["w"]
+    split = None if spec is None else tp.block_dim(w, spec["w"])
     if compute_dtype is not None:
         w = w.to(compute_dtype)
         x = x.to(compute_dtype)
     y = x @ w
+    if split is not None:
+        tp.COUNTS["block_products"] += 1
+        if split == 0:
+            y = tp.reduce_from_model(y)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
@@ -198,28 +210,44 @@ def swiglu_spec(d_model: int, d_ff: int, in_ax="embed", mid_ax="mlp") -> dict:
     }
 
 
-def swiglu(p, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
-    g = linear(p["gate"], x, compute_dtype)
-    u = linear(p["up"], x, compute_dtype)
-    return linear(p["down"], F.silu(g) * u, compute_dtype)
+def swiglu(p, x: torch.Tensor, compute_dtype=None, spec=None) -> torch.Tensor:
+    """``spec``: the layer's ``swiglu_spec``, as ``linear``'s; where ``p``
+    holds "model" blocks of it ("mlp" on "model"), gate and up are
+    column-parallel and down row-parallel."""
+    spec = spec or {}
+    if spec and tp.block_dim(p["gate"]["w"], spec["gate"]["w"]) is not None:
+        x = tp.copy_to_model(x)
+    g = linear(p["gate"], x, compute_dtype, spec.get("gate"))
+    u = linear(p["up"], x, compute_dtype, spec.get("up"))
+    return linear(p["down"], F.silu(g) * u, compute_dtype, spec.get("down"))
 
 
 def embedding_spec(vocab: int, dim: int) -> dict:
     return {"table": ParamSpec((vocab, dim), ("vocab", "embed"), "embed")}
 
 
-def embed(p, ids: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+def embed(p, ids: torch.Tensor, compute_dtype=None, spec=None) -> torch.Tensor:
+    """``spec``: the table's ``ParamSpec``, as ``linear``'s; where
+    ``p["table"]`` is a block of it, ``tp.vocab_parallel_embed``."""
     # gather first, then cast: the same values as casting the whole table,
     # without writing a cast copy of it on every step.  index_select, not
     # advanced indexing: its backward (index_add) is deterministic on CUDA
     table = p["table"]
-    h = torch.index_select(table, 0, ids.reshape(-1).long())
-    h = h.reshape(*ids.shape, table.shape[-1])
+    start = None if spec is None else tp.vocab_start(table, spec)
+    if start is not None:
+        h = tp.vocab_parallel_embed(table, ids, start)
+    else:
+        h = torch.index_select(table, 0, ids.reshape(-1).long())
+        h = h.reshape(*ids.shape, table.shape[-1])
     return h if compute_dtype is None else h.to(compute_dtype)
 
 
-def unembed(p, x: torch.Tensor) -> torch.Tensor:
-    """Logits in fp32 for loss stability."""
+def unembed(p, x: torch.Tensor, spec=None) -> torch.Tensor:
+    """Logits in fp32 for loss stability; this rank's block of them where
+    ``p["table"]`` is a block of the table ``spec`` declares (as ``embed``)."""
+    if spec is not None and tp.vocab_start(p["table"], spec) is not None:
+        tp.COUNTS["block_products"] += 1
+        x = tp.copy_to_model(x)
     return x.float() @ p["table"].float().T
 
 

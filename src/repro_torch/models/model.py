@@ -35,6 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as BL
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamSpec
+from repro_torch.parallel import tp
 from repro_torch.parallel.collectives import group_sum
 from repro_torch.utils.tree import (flatten_with_names, tree_leaves, tree_map,
                                     unflatten_like)
@@ -232,7 +233,7 @@ def embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
         for k in range(cfg.num_codebooks):
             h = h + L.embed({"table": tabs[k]}, tokens[..., k], dt)
     else:
-        h = L.embed(tree["embed"], tokens, dt)
+        h = L.embed(tree["embed"], tokens, dt, _vocab_spec(cfg, "embed"))
     if cfg.num_image_tokens and "image_embeds" in batch:
         n = cfg.num_image_tokens
         h = torch.cat([batch["image_embeds"].to(dt), h[:, n:]], dim=1)
@@ -249,8 +250,54 @@ def logits_fn(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
             return torch.einsum("bcd,kvd->bckv", h.float(), tree["embed"]["table"].float())
         return torch.einsum("bcd,kdv->bckv", h.float(), tree["head"].float())
     if cfg.tie_embeddings:
-        return L.unembed(tree["embed"], h)
+        return L.unembed(tree["embed"], h, _vocab_spec(cfg, "embed"))
+    if _logits_start(params, cfg) is not None:          # this rank's vocab block
+        tp.COUNTS["block_products"] += 1
+        h = tp.copy_to_model(h)
     return h.float() @ tree["head"].float()
+
+
+def _vocab_spec(cfg: ModelConfig, name: str):
+    """The ``ParamSpec`` of the embedding's table (``name`` "embed") or of
+    the head, which ``tp.vocab_start`` holds the leaf to, where the step
+    computes on "model" blocks (``tp.on_blocks``) and there are no
+    codebooks; else ``None``: the leaf is read whole."""
+    if cfg.num_codebooks or not tp.on_blocks():
+        return None
+    spec = param_specs(cfg)[name]
+    return spec["table"] if name == "embed" else spec
+
+
+def _logits_start(params, cfg: ModelConfig):
+    """The first vocabulary entry of this rank's block of the logits where
+    the head (or the tied table) is read as a "model" block, else ``None``."""
+    name = "embed" if cfg.tie_embeddings else "head"
+    spec = _vocab_spec(cfg, name)
+    if spec is None:
+        return None
+    tree = _tree(params)
+    return tp.vocab_start(tree["embed"]["table"] if name == "embed" else tree["head"], spec)
+
+
+def tp_leaves(cfg: ModelConfig) -> set:
+    """The leaves that the tensor-parallel modules read as this rank's
+    "model" block (``train/step.py`` gathers them over their other mesh axes
+    only, and computes under ``tp.computing_on_blocks``): the embedding and
+    the head without codebooks, and the GQA attention and dense SwiGLU of
+    the stacked segments.  Those modules hold each weight to its spec
+    through ``tp.block_dim`` (``tp.vocab_start``): the whole leaf where the
+    rules do not split it over "model", else this rank's block.  Every other
+    module (MoE experts, MLA, the SSM mixers, codebooks, zamba2's shared
+    block, the MTP block) reads its leaves whole."""
+    prefixes = []
+    if not cfg.num_codebooks:
+        prefixes += ["embed/", "head"]
+    for i, seg in enumerate(layer_plan(cfg)):
+        if seg.kind in ("attn_dense", "attn_moe"):
+            prefixes.append(f"seg{i}/attn/")
+        if seg.kind == "attn_dense":
+            prefixes.append(f"seg{i}/ffn/")
+    return {n for n, _ in flatten_with_names(param_specs(cfg)) if n.startswith(tuple(prefixes))}
 
 
 # ----------------------------------------------------------------------------------
@@ -291,7 +338,11 @@ def forward_full(params, cfg: ModelConfig, batch: dict, *, want_cache=False,
 # ----------------------------------------------------------------------------------
 
 
-def _ce_from_logits(logits, labels, mask):
+def _ce_from_logits(logits, labels, mask, start=None):
+    """(ce_sum, z_sum); ``tp.vocab_parallel_ce`` where ``logits`` are this
+    rank's block of the vocabulary, from entry ``start`` (``_logits_start``)."""
+    if start is not None:
+        return tp.vocab_parallel_ce(logits, labels, mask, start)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     ce = (lse - gold) * mask
@@ -304,7 +355,7 @@ def _chunk_ce(params, cfg: ModelConfig, h, labels, mask):
     codebooks' sums (labels (B,C,K))."""
     logits = logits_fn(params, cfg, h)
     if not cfg.num_codebooks:
-        return _ce_from_logits(logits, labels, mask)
+        return _ce_from_logits(logits, labels, mask, _logits_start(params, cfg))
     ce = z = 0.0
     for k in range(cfg.num_codebooks):
         c, zk = _ce_from_logits(logits[:, :, k], labels[..., k], mask)
@@ -356,7 +407,7 @@ def _mtp_ce(params, cfg: ModelConfig, h, tokens, mask, impl, batch_group=None):
     tree = _tree(params)
     mtp = tree["mtp"]
     dt = L.torch_dtype(cfg.compute_dtype)
-    emb_next = L.embed(tree["embed"], tokens, dt)
+    emb_next = L.embed(tree["embed"], tokens, dt, _vocab_spec(cfg, "embed"))
     x = L.linear(mtp["proj"], torch.cat([h[:, :-1], emb_next[:, 1:]], dim=-1), dt)
     B, S1, _ = x.shape
     pos = torch.arange(S1, device=x.device)[None].expand(B, S1)

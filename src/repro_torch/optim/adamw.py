@@ -14,6 +14,7 @@ import dataclasses
 import math
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.layers import torch_dtype
 from repro_torch.utils.tree import flatten_with_names, tree_map
@@ -51,9 +52,19 @@ def schedule(oc: OptConfig, step: torch.Tensor) -> torch.Tensor:
     return oc.lr * warm * (oc.min_lr_ratio + (1 - oc.min_lr_ratio) * cos)
 
 
-def global_norm(tree) -> torch.Tensor:
-    sums = [torch.sum(torch.square(x.float())) for _, x in flatten_with_names(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sums)))
+def global_norm(tree, *, counted=None, group=None) -> torch.Tensor:
+    """The l2 norm of every leaf of ``tree``.  Over a mesh, where ``tree``
+    holds this rank's blocks: ``counted``, the names of the leaves whose
+    square sums this rank adds (one of the ranks that hold the same block),
+    and ``group``, the ranks whose sums make the whole (default: this one)."""
+    named = flatten_with_names(tree)
+    sums = [torch.sum(torch.square(x.float())) for n, x in named
+            if counted is None or n in counted]
+    total = (torch.sum(torch.stack(sums)) if sums
+             else torch.zeros((), device=named[0][1].device))
+    if group is not None:
+        dist.all_reduce(total, group=group)
+    return torch.sqrt(total)
 
 
 # elements of a leaf updated at a time: the update's float32 temporaries

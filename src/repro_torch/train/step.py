@@ -10,26 +10,39 @@ autograd and updates the params and moments in place
 
 Over a mesh of several ranks (``core.virtualization.place_tree`` lays the
 state out; a leaf the rules split is a ``DTensor``), each rank takes its
-rows of the global batch by the batch's placement, computes with every
-parameter gathered whole, and the gradients are summed over the batch
-ranks; AdamW then updates each rank's own blocks of the params and moments,
-clipped by the norm of the whole gradient.  The products are not split over
-"model": tensor-parallel compute is not ported.  On a mesh of one rank
-every leaf is a plain tensor, and the step is the one-device step.
+rows of the global batch by the batch's placement.  The leaves of the
+tensor-parallel modules (``models.model.tp_leaves``: the embedding, the
+head, GQA attention and the dense SwiGLU) are gathered over their
+non-"model" axes only, and those modules compute on this rank's "model"
+block of them (``parallel/tp.py``; the step decides this once, where the
+"model" axis has several ranks, and runs under ``tp.computing_on_blocks``),
+as the reference's GSPMD splits their products; every other leaf is
+gathered whole.  Each gradient is cut to its
+"model" block, summed over the batch ranks and cut to this rank's block
+(one reduce-scatter where the leaf's other split lies along the batch
+ranks' axes); AdamW then updates each rank's own blocks of the params and
+moments, clipped by the norm of the whole gradient (each block's square
+sum counted once, summed over the mesh).  With ``impl="ring"`` the "model"
+axis carries the ring's sequence, and every leaf is gathered whole.  On a
+mesh of one rank every leaf is a plain tensor, and the step is the
+one-device step.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.virtualization import full_tensor
+from repro_torch.core.virtualization import full_tensor, gather_over
+from repro_torch.kernels import costs
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
+from repro_torch.parallel import tp
 from repro_torch.parallel.collectives import group_sum
 from repro_torch.parallel.context import use_mesh_context
 from repro_torch.parallel.mesh_rules import Rules, batch_logical_axes, named_axes
@@ -150,15 +163,58 @@ def loss_and_grads(params: dict, cfg: ModelConfig, batch: dict, *, impl=None,
             unflatten_like(params, out))
 
 
-def shard_batch(rules: Rules, batch: dict) -> tuple[dict, object, int]:
-    """(this rank's rows of a global batch by the batch's placement, the
-    process group of the ranks holding the other rows (``None``: one), how
-    many slices the batch splits into)."""
+def shard_batch(rules: Rules, batch: dict) -> tuple[dict, tuple]:
+    """(this rank's rows of a global batch by the batch's placement, the mesh
+    axes its rows are split over)."""
     axes = batch_logical_axes(batch)
     tok = batch["tokens"]
     mesh_axes = rules.dim_axes(axes["tokens"], tuple(tok.shape))[0]
     local = {k: x[rules.local_slices(axes[k], tuple(x.shape))] for k, x in batch.items()}
-    return local, rules.mesh.group(mesh_axes), rules.shard_count(mesh_axes)
+    return local, mesh_axes
+
+
+def _cut(rules: Rules, x, axes, shape, over) -> torch.Tensor:
+    """``x`` cut to this rank's block along the dims of ``shape`` that the
+    rules split over the mesh axes ``over``, whole along the others."""
+    slices = tuple(s if a and set(a) <= set(over) and rules.shard_count(a) > 1
+                   else slice(None)
+                   for s, a in zip(rules.local_slices(axes, shape), rules.dim_axes(axes, shape)))
+    return x if all(s == slice(None) for s in slices) else x[slices].contiguous()
+
+
+def _reduce_scatter(g, dim: int, group, rest) -> torch.Tensor:
+    """``g`` summed over ``group`` and cut to this rank's block along
+    ``dim`` (the group's rank order is the blocks'), then summed over
+    ``rest`` (``None``: no other ranks)."""
+    n = dist.get_world_size(group)
+    x = g.movedim(dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x, group=group)
+    if rest is not None:
+        dist.all_reduce(out, group=rest)
+    return out.movedim(0, dim)
+
+
+def own_block(rules: Rules, g, shape, axes, batch_axes) -> torch.Tensor:
+    """A gradient (whole, or the "model" block its module computed) summed
+    over the batch ranks (split over ``batch_axes``) and cut to this rank's
+    block of the leaf of ``shape`` and logical ``axes``.  A gradient
+    computed whole is cut to its "model" block first, the same on every
+    "model" rank, so none is summed whole; where the leaf's other split lies
+    along the batch ranks' axes, the sum and the cut are one reduce-scatter
+    (and an all-reduce over the batch axes left)."""
+    if tuple(g.shape) == tuple(shape):
+        g = _cut(rules, g, axes, shape, ("model",))
+    split = [(d, a) for d, a in enumerate(rules.dim_axes(axes, shape))
+             if a and a != ("model",) and rules.shard_count(a) > 1]
+    group = rules.mesh.group(batch_axes)
+    if group is not None and len(split) == 1 and set(split[0][1]) <= set(batch_axes):
+        d, a = split[0]
+        return _reduce_scatter(g, d, rules.mesh.group(a),
+                               rules.mesh.group([x for x in batch_axes if x not in a]))
+    if group is not None:
+        dist.all_reduce(g, group=group)
+    return _cut(rules, g, axes, shape, [a for a in rules.mesh.axis_names if a != "model"])
 
 
 def make_train_step(cfg: ModelConfig, oc: adamw.OptConfig, *,
@@ -177,30 +233,41 @@ def make_train_step(cfg: ModelConfig, oc: adamw.OptConfig, *,
     the reference computes but does not return; each is the whole batch's."""
     adt = torch.bfloat16 if cfg.param_dtype == "bfloat16" else torch.float32
     param_axes = dict(named_axes(state_logical_axes(cfg)["params"]))
+    # where the "model" axis carries the ring's sequence, every module computes whole
+    blocks = set() if (impl or cfg.attn_impl) == "ring" else M.tp_leaves(cfg)
+    shapes = {n: tuple(s.shape) for n, s in flatten_with_names(M.param_specs(cfg))}
 
-    def grads_of(full: dict, mb: dict):
-        local, group, shards = shard_batch(rules, mb)
+    def grads_of(params: dict, mb: dict):
+        local, batch_axes = shard_batch(rules, mb)
+        group, shards = rules.mesh.group(batch_axes), rules.shard_count(batch_axes)
         moe_groups = rules.axis_group_size("batch")
         if moe_groups % shards:
             raise ValueError(f"{moe_groups} routing groups do not split over the "
                              f"batch's {shards} slices")
-        loss, mets, grads = loss_and_grads(full, cfg, local, impl=impl, z_loss=z_loss,
+        loss, mets, grads = loss_and_grads(params, cfg, local, impl=impl, z_loss=z_loss,
                                            moe_groups=moe_groups // shards,
                                            batch_group=group)
+        if rules.mesh.size > 1:
+            with costs.section("grads"):
+                grads = unflatten_like(grads, {
+                    n: own_block(rules, g, shapes[n], param_axes[n], batch_axes)
+                    for n, g in flatten_with_names(grads)})
         if group is not None:
-            for _, g in flatten_with_names(grads):
-                dist.all_reduce(g, group=group)
             loss = group_sum(loss, group)
             mets = {k: group_sum(v, group) for k, v in mets.items() if k != "tokens"}
         return loss, mets, grads
 
-    def own_blocks(grads: dict, params: dict) -> dict:
-        """Each gradient cut to the block of its parameter this rank holds."""
-        named = dict(flatten_with_names(params))
-        return unflatten_like(grads, {
-            n: g[rules.local_slices(param_axes[n], tuple(g.shape))]
-            if hasattr(named[n], "to_local") else g
-            for n, g in flatten_with_names(grads)})
+    def counted(params: dict) -> set:
+        """The leaves whose blocks' square sums this rank adds to the norm:
+        of the ranks that hold one block, the one at coordinate 0 on every
+        axis that does not split the leaf."""
+        coord = dict(zip(rules.mesh.axis_names, rules.mesh.coordinate))
+        out = set()
+        for n, x in flatten_with_names(params):
+            split = {a for d in rules.dim_axes(param_axes[n], tuple(x.shape)) for a in d}
+            if all(coord[a] == 0 for a in rules.mesh.axis_names if a not in split):
+                out.add(n)
+        return out
 
     def local(tree):
         return tree_map(lambda x: x.to_local() if hasattr(x, "to_local") else x, tree)
@@ -209,24 +276,33 @@ def make_train_step(cfg: ModelConfig, oc: adamw.OptConfig, *,
         nonlocal rules
         if rules is None:
             rules = Rules(make_host_mesh(state["step"].device))
-        with use_mesh_context(rules.mesh, rules):      # for impl="ring"
-            return _step(state, batch)
+        # the modules compute on "model" blocks, or all whole: decided once a step
+        on_blocks = bool(blocks) and rules.mesh.group(("model",)) is not None
+        with use_mesh_context(rules.mesh, rules), \
+                (tp.computing_on_blocks() if on_blocks else contextlib.nullcontext()):
+            return _step(state, batch, on_blocks)
 
-    def _step(state: dict, batch: dict):
+    def _step(state: dict, batch: dict, on_blocks: bool):
         params = state["params"]
-        full = tree_map(full_tensor, params)
+        if on_blocks:
+            others = [a for a in rules.mesh.axis_names if a != "model"]
+            compute = unflatten_like(params, {
+                n: gather_over(x, others) if n in blocks else full_tensor(x)
+                for n, x in flatten_with_names(params)})
+        else:
+            compute = tree_map(full_tensor, params)
         batch = tree_map(full_tensor, batch)        # a placed batch is taken whole
         B = batch["tokens"].shape[0]
         mb_count = effective_microbatches(B, microbatches, rules.axis_group_size("batch"))
         if mb_count == 1:
-            loss, metrics, grads = grads_of(full, batch)
+            loss, metrics, grads = grads_of(compute, batch)
         else:
             gsum = lsum = None
             msum: dict = {}
             for i in range(mb_count):
                 mb = {k: x[i * (B // mb_count):(i + 1) * (B // mb_count)]
                       for k, x in batch.items()}
-                l, mets, g = grads_of(full, mb)
+                l, mets, g = grads_of(compute, mb)
                 if gsum is None:
                     gsum, lsum = tree_map(lambda x: x.to(adt), g), l
                 else:
@@ -238,12 +314,16 @@ def make_train_step(cfg: ModelConfig, oc: adamw.OptConfig, *,
             grads = tree_map(lambda g: (g / mb_count).float(), gsum)
             loss = lsum / mb_count
             metrics = {k: v / mb_count for k, v in msum.items()}
-        del full
-        # each rank's blocks, clipped by the norm of the whole gradient, which
-        # every rank holds (on one rank: the whole leaves and their own norm)
-        _, _, om = adamw.apply_updates(local(params), own_blocks(grads, params),
-                                       local(state["opt"]), state["step"], oc,
-                                       grad_norm=adamw.global_norm(grads))
+        del compute
+        # each rank's blocks, clipped by the norm of the whole gradient (on one
+        # rank: the whole leaves and their own norm)
+        if rules.mesh.size > 1:
+            norm = adamw.global_norm(grads, counted=counted(params),
+                                     group=rules.mesh.group(rules.mesh.axis_names))
+        else:
+            norm = adamw.global_norm(grads)
+        _, _, om = adamw.apply_updates(local(params), grads, local(state["opt"]),
+                                       state["step"], oc, grad_norm=norm)
         new_state = {"params": params, "opt": state["opt"], "step": state["step"] + 1}
         extra = {k: metrics[k] for k in ("aux", "mtp_ce") if k in metrics}
         return new_state, {"loss": loss, "ce": metrics.get("ce", loss), **om, **extra}

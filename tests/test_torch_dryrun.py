@@ -187,8 +187,11 @@ def test_fake_group_collectives_equal_8_gloo_ranks(port, tmp_path):
         assert (got["collectives"], got["collective_counts"]) == \
             (want["collectives"], want["collective_counts"]), key
         assert got["collective_counts"], key            # every step here communicates
-    # the train step: each parameter gathered whole, the gradients summed
-    assert set(gloo["(2, 4)|qwen2-0.5b|train"]["collectives"]) == {"all-gather", "all-reduce"}
+    # the train step: each parameter gathered over its non-"model" axes, the
+    # activations of the tensor-parallel products summed over "model", the
+    # gradients reduce-scattered to their blocks (the replicated ones summed)
+    assert set(gloo["(2, 4)|qwen2-0.5b|train"]["collectives"]) == {
+        "all-gather", "all-reduce", "reduce-scatter"}
 
 
 def test_argument_size_equals_the_references_shard_bytes(port, reference):
