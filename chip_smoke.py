@@ -29,6 +29,12 @@ Phases, in order; any failure exits non-zero:
    (Dq, Dv) = (192, 128) with 128 heads, ``flash_decode`` at the absorbed
    shape (one kv head for 128 query heads, Dq 576, Dv 512, V a strided view
    of K's rows, the caller's scale), and both at reduced MLA's (48, 32);
+   ``flash_decode``'s log-sum-exp (``return_lse``) at every case against
+   the plain version's (2e-5 of max(|lse|, 1) in float32, 2e-3 in
+   bfloat16; ``-inf`` where kv_len is 0), its device time with the lse
+   beside the time without, and qwen2's decode shape split by position into
+   4 blocks, each through the kernel with its lse and merged by
+   ``tp.merge_partials``, against the whole cache's kernel;
 3. serve: ``repro_torch.launch.serve`` with a snapshot, migration and
    restore half way, at full width and depth for qwen2-0.5b, zamba2-1.2b,
    rwkv6-1.6b, qwen3-4b and granite-moe-3b-a800m (MoE, 40 experts top-8),
@@ -109,7 +115,12 @@ Phases, in order; any failure exits non-zero:
    cross entropy split over the two ranks; its count of block products
    above 0); the card restores it and takes step 4 too; every step-4 loss
    within 5e-4 of the (2, 1) restore's, and the card's re-save of the
-   restored state keeps the CPU save's chunk hashes bit for bit;
+   restored state keeps the CPU save's chunk hashes bit for bit; (d) on the
+   same two CPU ranks at (1, 2), reduced qwen2-0.5b (its cache a kv head a
+   rank) and reduced deepseek-v3 (MLA's latent cache 16 positions a rank)
+   serve on "model" blocks and snapshot at token 4 (the whole cache,
+   gathered); the card restores each snapshot at (1, 1) and continues with
+   the ranks' tokens, flash_decode once a layer a step;
 13. analysis: (a) phase 2's bounds read as PERF.md's table prints them
    (EXPECTED_BOUNDS); (b) a train step of qwen2-0.5b at full width and 8
    layers on the card under ``launch/hlo_costs.py``'s walk against the dry
@@ -117,16 +128,21 @@ Phases, in order; any failure exits non-zero:
    arguments' bytes equal to the live state's and batch's, the predicted
    peak within 25% of the allocator's; (c) ``python -m
    repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k --mesh pod``
-   and ``python -m repro_torch.launch.roofline`` as CPU subprocesses
-   (started with phase 11(c)) exit 0 with an ok record, whose step computes
-   on "model" blocks: FLOPs a rank at most 1.0e14 and 6ND/walk at least
-   0.11 (the step that gathered every parameter whole: 2.751e14 and 0.04),
-   and the gradients' collectives (the walk's "grads" section) at most 1/8
-   of that step's 7.9 GB a rank; (d) each step the
+   (and ``--shape decode_32k`` and ``prefill_32k``, the three started
+   together) and ``python -m repro_torch.launch.roofline`` as CPU
+   subprocesses (started with phase 11(c)) exit 0 with ok records, whose
+   steps compute on "model" blocks: train_4k's FLOPs a rank at most 1.0e14
+   and 6ND/walk at least 0.11 (the step that gathered every parameter
+   whole: 2.751e14 and 0.04), and the gradients' collectives (the walk's
+   "grads" section) at most 1/8 of that step's 7.9 GB a rank; the serving
+   cells with the cache as the rules' blocks within SERVE_LIMITS
+   (decode_32k FLOPs a rank at most 5e9, output at most 0.5 GB, no
+   all-gather as large as a cache leaf's block; prefill_32k FLOPs at most
+   1.0e14, temporaries at most 3 GB); (d) each step the
    earlier phases time on the device (5, 6, 10(a), 11(a)-(b)) as a share of
    the peak: model FLOPs over (device time x peak), none above 1.05.
 
-Phase 12's two CPU ranks run ``chip_smoke.py --gloo-child RANK WORLD STORE
+Phase 12(c)-(d)'s two CPU ranks run ``chip_smoke.py --gloo-child RANK WORLD STORE
 WORK``, with no card, meet through a ``FileStore``, and start with phase 11(b).  The C/R loops
 of phases 7, 9 and 10(b) run ``repro_torch.launch.train.main``
 in a child process of this script (``chip_smoke.py --train-child ARCH LAYERS
@@ -263,6 +279,14 @@ ELASTIC_ARCH = "llama3.2-1b"
 ELASTIC_OPT = {"warmup_steps": 2, "decay_steps": 10}
 # the reference's limit on a step-4 loss under another mesh (reductions reassociate)
 ELASTIC_TOL = 5e-4
+# phase 12(d): serving over "model" blocks on the two CPU ranks at (1, 2),
+# reduced qwen2-0.5b (its cache on kv_heads_dim: 2 kv heads, a head a rank)
+# and reduced deepseek-v3 (MLA's latent on cache_seq: 16 positions a rank),
+# B4, prompts of 12, a cache of 32, a snapshot at token 4 and 4 tokens after it
+SERVE_TP_ARCHS = ("qwen2-0.5b", "deepseek-v3-671b")
+SERVE_TP = {"batch": 4, "prompt": 12, "max_seq": 32, "snap_at": 4, "after": 4}
+# the card's continuation against the ranks': phase 4's limit (card and CPU)
+SERVE_TP_LOGIT_TOL = 1e-3
 # deadlines of the child processes, about 3x their wall time on a slow disk
 GLOO_DEADLINE_S = 150
 TRAIN_RUN_DEADLINE_S = 300
@@ -456,6 +480,11 @@ FLASH_SHAPES = [("qwen2-0.5b prefill", 4, 512, 14, 2, 64, 64, "qwen2-0.5b"),
                 ("deepseek-v3-671b MLA train forward", 8, 128, 128, 128, 192, 128,
                  "train-deepseek-v3")]
 DECODE_KV_LEN = 544      # the serve phases' last position: prompt 512 + 32
+# flash_decode's log-sum-exp against the plain version's, of max(|lse|, 1):
+# the kernel and the plain version both sum in float32 (bfloat16 only in the
+# inputs, read alike), so only the order of the sums differs
+LSE_TOL = {"float32": 2e-5, "bfloat16": 2e-3}
+SPLIT_BLOCKS = 4         # the split-by-position check: "model" ranks of cache_seq
 # (label, B, S, H, Hkv, Dq, Dv, kv_len, launch source, MLA config); a row with
 # an MLA config is MLA's absorbed decode: one kv head, V the first Dv columns
 # of K's rows (a view), the scale ``models.attention.mla_scale`` of that config
@@ -574,7 +603,7 @@ def phase_kernels() -> dict:
         (2, 64, 4, 1, 48, 32, "bfloat16", (1, 25, 32, 64), "reduced deepseek-v3-671b"),
         (2, 64, 4, 1, 48, 32, "float32", (1, 25, 32, 64), "reduced deepseek-v3-671b"),
     ]
-    worst = 0.0
+    worst = lse_worst = 0.0
     for B, S, H, Hkv, Dq, Dv, dtn, kv_lens, mla_cfg in decode_cases:
         q = _randn((B, 1, H, Dq), dt[dtn], gen)
         k = _randn((B, S, Hkv, Dq), dt[dtn], gen)
@@ -584,23 +613,27 @@ def phase_kernels() -> dict:
         for kv_len in kv_lens:
             kvl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
             got = decode_attention.flash_decode(q, k, v, kv_len=kvl, scale=scale)
-            want = ref.attention(q.float(), k.float(), v.float(), causal=False,
-                                 kv_len=kv_len, scale=scale)
-            again = decode_attention.flash_decode(q, k, v, kv_len=kvl, scale=scale)
+            want, want_lse = ref.attention(q.float(), k.float(), v.float(), causal=False,
+                                           kv_len=kv_len, scale=scale, return_lse=True)
+            again, lse = decode_attention.flash_decode(q, k, v, kv_len=kvl, scale=scale,
+                                                       return_lse=True)
             torch.cuda.synchronize()
             err, excess, ok = attn_check("flash_decode", got, want, dtn)
             same = torch.equal(got, again)
-            ok = ok and same
+            lse_err, lse_ok = lse_check(lse, want_lse, dtn)
+            ok = ok and same and lse_ok
             dims = (f"Dq{Dq} Dv{Dv} (v a view of k) scale {scale!r}" if mla_cfg
                     else f"D{Dq}" if Dq == Dv else f"Dq{Dq} Dv{Dv}")
             log(f"  flash_decode B{B} S{S} H{H} Hkv{Hkv} {dims} {dtn} kv_len={kv_len}: "
                 f"max_abs_err {err:.3g} (tol {TOL[dtn]})"
-                f"{_excess_note('flash_decode', excess, dtn)} repeatable={same} "
+                f"{_excess_note('flash_decode', excess, dtn)} repeatable={same}; lse "
+                f"{lse_err:.3g} of max(|lse|, 1) (tol {LSE_TOL[dtn]}) "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(
-                    f"flash_decode disagrees with its plain version: {err}, {excess}")
-            worst = max(worst, err)
+                    f"flash_decode disagrees with its plain version: {err}, {excess}, "
+                    f"lse {lse_err}, the output with its lse the same {same}")
+            worst, lse_worst = max(worst, err), max(lse_worst, lse_err)
     shapes = []
     for label, B, S, H, Hkv, Dq, Dv, kv_len, source, mla_cfg in DECODE_SHAPES:
         kvl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
@@ -619,6 +652,10 @@ def phase_kernels() -> dict:
 
         def lib(q, k, v):
             return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, scale=scale)
+
+        def kern_lse(q, k, v):
+            return decode_attention.flash_decode(q, k, v, kv_len=kvl, scale=scale,
+                                                 return_lse=True)
 
         library = device_ms(lib, lib_sets)
         if absorbed:
@@ -650,13 +687,16 @@ def phase_kernels() -> dict:
                   f"({decode_attention.num_splits(S)} splits, "
                   f"{decode_attention.heads_per_cta(Dq, Dv, H // Hkv, elt)} heads a CTA)",
             ms=device_ms(kern, sets), call_ms=call_ms(kern, sets), library_ms=library,
+            lse_ms=device_ms(kern_lse, sets),
             plain_ms=timed_ms(lambda q, k, v: ref.attention(q, k, v, causal=False,
                                                             kv_len=kvl, scale=scale), sets),
             bound_ms=b_ms, bound_by=b_by))
-    report["flash_decode"] = dict(max_abs_err=worst, shapes=shapes)
+    report["flash_decode"] = dict(max_abs_err=worst, lse_max_err=lse_worst, shapes=shapes,
+                                  split=_split_decode(gen))
     for r in report["flash"]["shapes"] + shapes:
+        with_lse = f" (with its lse {fmt(r['lse_ms'])})" if "lse_ms" in r else ""
         log(f"  {r['kernel']} timing, {r['label']} ({r['shape']}): device ms {fmt(r['ms'])}"
-            f"  call_ms {fmt(r['call_ms'])}  library device ms {fmt(r['library_ms'])} "
+            f"{with_lse}  call_ms {fmt(r['call_ms'])}  library device ms {fmt(r['library_ms'])} "
             f"({', '.join(k[:40] for k in r['library_ms']['kernels'][:3])})"
             f"  plain_ms {r['plain_ms']:.4f}  bound_ms {r['bound_ms']:.6f} ({r['bound_by']})")
 
@@ -722,6 +762,72 @@ def backward_ms(fn, inputs, kw, repeats: int = 5, iters: int = 3) -> dict:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop) / iters)
     return spread(times)
+
+
+def lse_check(got, want, dtn: str) -> tuple[float, bool]:
+    """The kernel's log-sum-exp against the plain version's: the largest
+    |difference| over max(|lse|, 1) (within LSE_TOL), ``-inf`` exactly
+    where the plain version has it (no key below kv_len)."""
+    import torch
+
+    got, want = got.float(), want.float()
+    empty = torch.isneginf(want)
+    if not torch.equal(torch.isneginf(got), empty) or not bool(torch.isfinite(got[~empty]).all()):
+        return math.inf, False
+    if bool(empty.all()):
+        return 0.0, True
+    err = ((got - want)[~empty].abs() / want[~empty].abs().clamp(min=1.0)).max().item()
+    return err, err <= LSE_TOL[dtn]
+
+
+def _split_decode(gen) -> dict:
+    """qwen2-0.5b's decode shape (B4 S1024 H14 Hkv2 D64 bfloat16, kv_len
+    DECODE_KV_LEN) as a cache split by position into SPLIT_BLOCKS blocks,
+    as "model" ranks hold it under ``cache_seq``: each block through the
+    kernel with its lse and its own kv_len (``tp.local_kv_len``'s: the last
+    block holds no key), merged by ``tp.merge_partials`` in block order,
+    against the whole-cache kernel within phase 2's attention tolerance
+    (TOL, and per element ``attn_check``'s atol + rtol |whole| plus what the
+    blocks' own bfloat16 outputs carry in: 2^-8 of the lse-weighted mean of
+    their |output|)."""
+    import torch
+
+    from repro_torch.kernels import decode_attention
+    from repro_torch.parallel import tp
+
+    B, S, H, Hkv, D = 4, 1024, 14, 2, 64
+    q = _randn((B, 1, H, D), torch.bfloat16, gen)
+    k, v = (_randn((B, S, Hkv, D), torch.bfloat16, gen) for _ in range(2))
+    n = S // SPLIT_BLOCKS
+    kvl = torch.tensor(DECODE_KV_LEN, dtype=torch.int32, device="cuda")
+    whole = decode_attention.flash_decode(q, k, v, kv_len=kvl)
+    outs, lses, lens = [], [], []
+    for r in range(SPLIT_BLOCKS):
+        local = torch.clamp(kvl - r * n, 0, n).to(torch.int32)
+        o, lse = decode_attention.flash_decode(q, k[:, r * n:(r + 1) * n].contiguous(),
+                                               v[:, r * n:(r + 1) * n].contiguous(),
+                                               kv_len=local, return_lse=True)
+        outs.append(o)
+        lses.append(lse)
+        lens.append(int(local))
+    merged = tp.merge_partials(outs, lses)
+    carried = 2.0 ** -8 * tp.merge_partials([o.float().abs() for o in outs], lses)
+    torch.cuda.synchronize()
+    diff = (merged.float() - whole.float()).abs()
+    atol, rtol = ATTN_BF16_TOL["flash_decode"]
+    err = diff.max().item()
+    excess = (diff - rtol * whole.float().abs() - carried).max().item()
+    ok = err <= TOL["bfloat16"] and excess <= atol and bool(torch.isfinite(merged).all())
+    empty = [bool(torch.isneginf(lse).all()) for lse in lses]
+    log(f"  flash_decode split by position: B{B} S{S} H{H} Hkv{Hkv} D{D} bfloat16 kv_len "
+        f"{DECODE_KV_LEN} in {SPLIT_BLOCKS} blocks of {n} (kv_len {lens}, lse -inf {empty}), "
+        f"merged by lse: max_abs_err {err:.3g} against the whole cache's kernel (tol "
+        f"{TOL['bfloat16']}), beyond {rtol}|whole| + 2^-8 of the blocks' |output| "
+        f"{excess:.3g} (atol {atol}) {'ok' if ok else 'FAIL'}")
+    if not ok or empty != [n_ == 0 for n_ in lens]:
+        raise AssertionError(f"the merged blocks disagree with the whole cache: {err}, "
+                             f"{excess}, empty blocks {empty} of kv_lens {lens}")
+    return {"max_abs_err": err, "kv_lens": lens}
 
 
 def _checksum_kernels(gen) -> dict:
@@ -2203,12 +2309,62 @@ def _elastic_save(root: Path, state, rank: int) -> None:
         mgr.close()
 
 
+def _serve_tp_setup(arch: str, device: str):
+    """Phase 12(d)'s reduced model (parameters drawn on the CPU from seed 0,
+    alike on the ranks and the card) and its prompts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models import model as M
+    from repro_torch.utils.tree import tree_map
+
+    cfg = reduced(get_config(arch))
+    tree = tree_map(lambda t: t.numpy(), M.params_tree(M.init_params(cfg, 0, "cpu")))
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(0, cfg.vocab_size, (SERVE_TP["batch"], SERVE_TP["prompt"]))
+    return (cfg, M.params_from_numpy(cfg, tree, device),
+            {"tokens": torch.from_numpy(tokens.astype(np.int32)).to(device)})
+
+
+def _serve_tp_ranks(work: Path, rank: int) -> dict:
+    """Phase 12(d) on the two ranks at (1, 2): each arch serves on "model"
+    blocks, snapshots at ``snap_at`` (rank 0 saves the whole snapshot) and
+    goes on; the cache blocks' shapes, the tokens after the snapshot and
+    the last logits."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.mesh_rules import Rules
+    from repro_torch.serve.engine import Engine
+    from repro_torch.utils.tree import flatten_with_names
+
+    rules = Rules(make_mesh((1, 2)))
+    out = {}
+    for arch in SERVE_TP_ARCHS:
+        cfg, model, prompts = _serve_tp_setup(arch, "cpu")
+        eng = Engine(cfg, model, batch=SERVE_TP["batch"], max_seq=SERVE_TP["max_seq"],
+                     rules=rules)
+        eng.prefill(prompts)
+        eng.generate(SERVE_TP["snap_at"])
+        snap = eng.snapshot()
+        tokens = eng.generate(SERVE_TP["after"])
+        if rank == 0:
+            torch.save({**snap, "logits": eng.whole_rows(eng.last_logits)},
+                       work / f"serve-{arch}.pt")
+        out[arch] = {"tokens": tokens.tolist(), "blocks": sorted(eng.blocks),
+                     "shapes": {n: list(x.shape) for n, x in flatten_with_names(eng.cache)
+                                if n in eng.blocks}}
+    return out
+
+
 def gloo_child(argv: list) -> int:
     """``chip_smoke.py --gloo-child RANK WORLD STORE WORK``: one CPU rank of
-    phase 12(c), joined to the other over gloo (a ``FileStore``): three steps
-    of the elastic scenario from seed 3 at mesh (2, 1) and a save; then, in
-    each of the meshes (2, 1) and (1, 2) over the same two ranks, a restore
-    of that save and step 4.  Rank 0 prints the losses as JSON."""
+    phase 12(c)-(d), joined to the other over gloo (a ``FileStore``): three
+    steps of the elastic scenario from seed 3 at mesh (2, 1) and a save;
+    then, in each of the meshes (2, 1) and (1, 2) over the same two ranks, a
+    restore of that save and step 4; then 12(d)'s serving at (1, 2).  Rank
+    0 prints the losses and the served tokens as JSON."""
     import datetime
 
     import torch
@@ -2257,6 +2413,9 @@ def gloo_child(argv: list) -> int:
             rep["step4"][str(shape)] = float(m["loss"])
             rep["block_products"][str(shape)] = tp.COUNTS["block_products"]
         rep["s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rep["serve"] = _serve_tp_ranks(work, rank)
+        rep["serve_s"] = time.perf_counter() - t0
         if rank == 0:
             print(json.dumps(rep), flush=True)
         dist.barrier()
@@ -2312,7 +2471,8 @@ def phase_parallel(work: Path, ranks: "_GlooGroup") -> dict:
     (2, 1) train and save, the card restores it and takes step 4, the ranks
     at (2, 1) and at (1, 2) do too; every step-4 loss within ELASTIC_TOL of
     the (2, 1) ranks' own, and the card's re-save of the restored state
-    keeps the CPU save's chunk hashes."""
+    keeps the CPU save's chunk hashes; (d) the ranks' serving snapshots
+    (``_serve_tp_ranks``) restored on the card (``_serve_tp_card``)."""
     import torch
     import torch.distributed as dist
 
@@ -2429,10 +2589,50 @@ def phase_parallel(work: Path, ranks: "_GlooGroup") -> dict:
     if card_flash != cfg.num_layers or not math.isfinite(card4):
         raise AssertionError(f"the card's step launched flash {card_flash} times")
     del state
+    serve = _serve_tp_card(work, cpu)
     return {"ring_ms": ring_ms, "flash_ms": flash_ms, "ring_err": err_plain,
             "step4": {**cpu["step4"], "card": card4}, "losses": cpu["losses"],
             "card_flash": card_flash, "ring_fallthrough": ring_fallthrough,
-            "ring_launches": ring_launches}
+            "ring_launches": ring_launches, "serve": serve}
+
+
+def _serve_tp_card(work: Path, cpu: dict) -> dict:
+    """Phase 12(d) on the card: each snapshot the (1, 2) ranks took (their
+    cache blocks on "model": a kv head a rank for qwen2, 16 positions a rank
+    for deepseek-v3's latent) restored at (1, 1) and continued: the ranks'
+    tokens, the last logits within SERVE_TP_LOGIT_TOL of the largest
+    |logit|, every decode step through flash_decode."""
+    import torch
+
+    from repro_torch.kernels import decode_attention
+    from repro_torch.serve.engine import Engine
+
+    out = {}
+    for arch, ranks in cpu["serve"].items():
+        cfg, model, _ = _serve_tp_setup(arch, "cuda")
+        snap = torch.load(work / f"serve-{arch}.pt", map_location="cuda")
+        eng = Engine(cfg, model, batch=SERVE_TP["batch"], max_seq=SERVE_TP["max_seq"])
+        decode_attention.launches = 0
+        eng.restore({"cache": snap["cache"], "last_tokens": snap["last_tokens"]})
+        tokens = eng.generate(SERVE_TP["after"])
+        launched = decode_attention.launches
+        want = snap["logits"].float()
+        err = float((eng.last_logits.float() - want).abs().max())
+        scale = float(want.abs().max())
+        same = tokens.tolist() == ranks["tokens"]
+        log(f"  (d) {arch} reduced, B{SERVE_TP['batch']} cache {SERVE_TP['max_seq']}: two CPU "
+            f"ranks at (1, 2) serve on \"model\" blocks (cache blocks {ranks['shapes']}) and "
+            f"snapshot at token {SERVE_TP['snap_at']}; the card restores the whole snapshot at "
+            f"(1, 1): its {SERVE_TP['after']} tokens equal the ranks': {same}; last logits "
+            f"max_abs_err {err:.3g} (tol {SERVE_TP_LOGIT_TOL} of {scale:.3g}); flash_decode "
+            f"launches {launched}")
+        if not same or err > SERVE_TP_LOGIT_TOL * scale:
+            raise AssertionError(f"{arch}: the card's continuation differs from the ranks': "
+                                 f"{tokens.tolist()} / {ranks['tokens']}, logits {err}")
+        if launched != SERVE_TP["after"] * cfg.num_layers:
+            raise AssertionError(f"{arch}: flash_decode launched {launched} times")
+        out[arch] = {"tokens_equal": same, "logit_err": err, "flash_decode": launched}
+    return out
 
 # ----------------------------------------------------------------------------------
 # phase 13: the analysis tools (kernels/costs.py, launch/{hlo_costs,dryrun,roofline})
@@ -2465,9 +2665,11 @@ EXPECTED_BOUNDS = {
     ("wkv6", "rwkv6-1.6b prefill"): "0.01315",
     ("wkv6", "rwkv6-1.6b train forward"): "0.00626",
 }
-# (c): the dry run and the roofline as a user runs them, on the CPU
-ANALYSIS_CLI = (["repro_torch.launch.dryrun", "--arch", "qwen2-0.5b", "--shape", "train_4k",
-                 "--mesh", "pod"],
+# (c): the dry run (three cells, their processes started together) and then
+# the roofline, as a user runs them, on the CPU
+ANALYSIS_SHAPES = ("train_4k", "decode_32k", "prefill_32k")
+ANALYSIS_CLI = ([["repro_torch.launch.dryrun", "--arch", "qwen2-0.5b", "--shape", shape,
+                  "--mesh", "pod"] for shape in ANALYSIS_SHAPES],
                 ["repro_torch.launch.roofline"])
 ANALYSIS_DEADLINE_S = 240
 # (c): the record's step on "model" blocks, against the step that gathered
@@ -2476,6 +2678,14 @@ ANALYSIS_DEADLINE_S = 240
 TP_FLOPS_MAX = 1.0e14
 TP_USEFUL_MIN = 0.11
 TP_GRAD_BYTES_MAX = 7.9e9 / 8
+# (c): the serving cells on "model" blocks, with the cache as the rules' blocks,
+# against the steps that gathered every parameter whole and redistributed the
+# cache to rows (decode_32k 3.05e10 FLOPs a rank, 3.23 GB of output, two cache
+# leaves all-gathered, 2 x 201 MB; prefill_32k 1.39e14 FLOPs, 5.80 GB of
+# temporaries).  A cache leaf's block a rank, seg0/k, is 100.7 MB: the decode
+# step's all-gathers (the parameters' FSDP blocks) stay below it
+SERVE_LIMITS = {"decode_32k": {"flops": 5e9, "output_size": 0.5e9, "all-gather": 1.0e8},
+                "prefill_32k": {"flops": 1.0e14, "temp_size": 3.0e9}}
 PEAK_TOL = 0.25          # (b): the dry run's peak against the allocator's
 SHARE_MAX = 1.05         # (d): model FLOPs over (device time x peak)
 
@@ -2486,7 +2696,7 @@ class _AnalysisCLI:
 
     def __init__(self, work: Path):
         self.log = work / "analysis.log"
-        self.proc, self.rcs, self.secs, self.stopped = None, [], [], False
+        self.procs, self.rcs, self.secs, self.stopped = [], [], [], False
         self.deadline = time.monotonic() + ANALYSIS_DEADLINE_S
         self.thread = threading.Thread(target=self._run, daemon=True)
         self.thread.start()
@@ -2494,22 +2704,24 @@ class _AnalysisCLI:
     def _run(self) -> None:
         env = {**_child_env(), "CUDA_VISIBLE_DEVICES": ""}
         with open(self.log, "w") as out:
-            for argv in ANALYSIS_CLI:
+            for argvs in ANALYSIS_CLI:
                 if self.stopped:
                     return
                 t0 = time.perf_counter()
-                self.proc = subprocess.Popen([sys.executable, "-m", *argv], env=env, cwd=ROOT,
-                                             stdout=out, stderr=subprocess.STDOUT)
-                self.rcs.append(self.proc.wait())
+                self.procs = [subprocess.Popen([sys.executable, "-m", *argv], env=env,
+                                               cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+                              for argv in (argvs if isinstance(argvs[0], list) else [argvs])]
+                self.rcs.append(max(p.wait() for p in self.procs))
                 self.secs.append(time.perf_counter() - t0)
                 if self.rcs[-1]:
                     return
 
     def kill(self) -> None:
         self.stopped = True
-        if self.proc is not None and self.proc.poll() is None:
-            self.proc.kill()
-            self.proc.wait()
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
 
     def wait(self) -> dict:
         self.thread.join(max(self.deadline - time.monotonic(), 1))
@@ -2519,11 +2731,14 @@ class _AnalysisCLI:
         text = self.log.read_text()
         if self.rcs != [0, 0]:
             raise AssertionError(f"dryrun / roofline exited {self.rcs}:\n{_tail(text)}")
-        rec = json.loads((ROOT / "results" / "dryrun_torch" / "qwen2-0.5b__train_4k__pod.json")
-                         .read_text())
-        if not rec.get("ok"):
-            raise AssertionError(f"the dry run's record is not ok: {rec.get('error')}")
-        return {"record": rec, "secs": self.secs, "output": text}
+        recs = {shape: json.loads((ROOT / "results" / "dryrun_torch" /
+                                   f"qwen2-0.5b__{shape}__pod.json").read_text())
+                for shape in ANALYSIS_SHAPES}
+        bad = {shape: rec.get("error") for shape, rec in recs.items() if not rec.get("ok")}
+        if bad:
+            raise AssertionError(f"the dry run's records are not ok: {bad}")
+        return {"record": recs["train_4k"], "serving": recs, "secs": self.secs,
+                "output": text}
 
 
 def phase_analysis(kern: dict, timed: list, cli: "_AnalysisCLI") -> dict:
@@ -2556,7 +2771,7 @@ def phase_analysis(kern: dict, timed: list, cli: "_AnalysisCLI") -> dict:
     cli_rep = analysis_cli(cli)
     shares = timed_shares(timed)
     return {**step_rep, "cli_secs": cli_rep["secs"], "shares": shares,
-            "tp": {k: cli_rep[k] for k in ("flops", "useful", "grad_bytes")}}
+            "tp": {k: cli_rep[k] for k in ("flops", "useful", "grad_bytes", "serving")}}
 
 
 def analysis_step() -> dict:
@@ -2626,7 +2841,8 @@ def analysis_cli(cli: "_AnalysisCLI") -> dict:
     """Phase 13(c) (see ``phase_analysis``)."""
     cli_rep = cli.wait()
     rec = cli_rep["record"]
-    log(f"  (c) dryrun ({cli_rep['secs'][0]:.1f}s) and roofline ({cli_rep['secs'][1]:.1f}s) "
+    log(f"  (c) dryrun, {len(ANALYSIS_SHAPES)} cells at once ({cli_rep['secs'][0]:.1f}s), and "
+        f"roofline ({cli_rep['secs'][1]:.1f}s) "
         f"exit 0; qwen2-0.5b train_4k pod, rank 0 of 256: FLOPs {rec['hlo_costs']['flops']:.4g},"
         f" bytes {rec['hlo_costs']['bytes']:.4g}, collectives {rec['hlo_costs']['collectives']},"
         f" arguments {rec['memory']['argument_size']}, temporaries "
@@ -2646,6 +2862,22 @@ def analysis_cli(cli: "_AnalysisCLI") -> dict:
         raise AssertionError(f"the dry run's step is not split over 'model': FLOPs {flops}, "
                              f"6ND/walk {useful}, gradient collectives {grads}")
     cli_rep.update(flops=flops, useful=useful, grad_bytes=grads)
+    serving = {}
+    for shape, limits in SERVE_LIMITS.items():
+        rec = cli_rep["serving"][shape]
+        got = {"flops": rec["hlo_costs"]["flops"],
+               "all-gather": rec["hlo_costs"]["collectives"].get("all-gather", 0.0),
+               **rec["memory"]}
+        log(f"      {shape} on \"model\" blocks, the cache as the rules' blocks: FLOPs a rank "
+            f"{got['flops']:.4g}, output {got['output_size']:.4g} B, temporaries "
+            f"{got['temp_size']:.4g} B, all-gathers {got['all-gather']:.4g} B (limits "
+            + ", ".join(f"{k} {v:.4g}" for k, v in limits.items()) + ")")
+        over = {k: got[k] for k, v in limits.items() if got[k] > v}
+        if over:
+            raise AssertionError(f"the dry run's {shape} is over its limits: {over}")
+        serving[shape] = {k: got[k] for k in ("flops", "output_size", "temp_size",
+                                               "all-gather")}
+    cli_rep["serving"] = serving
     return cli_rep
 
 
@@ -2767,7 +2999,8 @@ def main() -> int:
               "next step")
         cr_rep = phase_cr_in_process(work, "granite-moe-3b-a800m", MOE_CR_LAYERS)
         phase("phase 12 parallelism: the card's mesh and rules, the ring, the elastic restore "
-              "across CPU ranks and the card")
+              "across CPU ranks and the card, a snapshot of CPU ranks serving on 'model' "
+              "blocks restored on the card")
         phase_parallel(work, ranks)
         phase("phase 13 analysis: the bounds' formulas, a train step on the card under the "
               "walk against its dry run, dryrun and roofline, the timed steps' shares")

@@ -10,7 +10,10 @@ job has.  A checkpoint taken on (4, 2) ranks restores onto (2, 4), (8, 1),
 ``place_tree`` is the single entry point: host tree -> tree of tensors laid
 out for the current mesh (``parallel/mesh_rules.py``).  Every rank holds
 the whole host tree (each reads the checkpoint), so placing a leaf is
-taking this rank's block of it: no communication.
+taking this rank's block of it: no communication.  A serving cache moves
+between meshes the same way: ``cut_tree`` takes a whole tree to this rank's
+blocks as plain tensors (what the engine computes on), ``whole_tree``
+gathers them back, so a snapshot is mesh-free.
 """
 from __future__ import annotations
 
@@ -19,6 +22,65 @@ import torch
 from repro_torch.checkpoint.serialization import host_array, to_torch
 from repro_torch.parallel.mesh_rules import named_axes
 from repro_torch.utils.tree import tree_map, tree_map_with_path
+
+
+def cut_over(rules, x, axes, over, shape=None):
+    """``x``, a leaf of logical ``axes``, cut to this rank's block along the
+    dims that ``rules`` split over mesh axes among ``over``, whole along the
+    others; ``x`` itself where no such dim is split.  ``shape``: the whole
+    leaf's, where ``x`` is already a block along other dims (default: x's)."""
+    shape = tuple(x.shape if shape is None else shape)
+    sl = tuple(s if a and set(a) <= set(over) and rules.shard_count(a) > 1 else slice(None)
+               for s, a in zip(rules.local_slices(axes, shape), rules.dim_axes(axes, shape)))
+    return x if all(s == slice(None) for s in sl) else x[sl]
+
+
+def cut_tree(whole, axes_tree, rules, model_blocks=None):
+    """A tree of whole tensors (every rank holds it) -> this rank's block of
+    each leaf under ``rules``, as plain contiguous tensors: the leaves
+    named in ``model_blocks`` (every leaf where it is ``None``) as the rules
+    lay them out, the others over the mesh's other axes only, whole over
+    "model" (their modules compute whole).  A leaf the mesh does not split
+    is returned as it is; a cut leaf is a copy, so writing it leaves
+    ``whole`` as it was.  No communication."""
+    axes = dict(named_axes(axes_tree))
+    names = rules.mesh.axis_names
+
+    def cut(name, x):
+        over = names if model_blocks is None or name in model_blocks else \
+            [a for a in names if a != "model"]
+        y = cut_over(rules, x, axes[name], over)
+        return x if y is x else y.clone(memory_format=torch.contiguous_format)
+
+    return tree_map_with_path(cut, whole)
+
+
+def whole_tree(blocks, axes_tree, rules, shapes: dict, model_blocks=None):
+    """The inverse of ``cut_tree``: each leaf of ``blocks`` (this rank's,
+    laid out as ``cut_tree`` lays out a leaf of whole shape ``shapes[path]``)
+    gathered whole from every rank's block (a collective: every rank
+    calls).  On a mesh of one rank every leaf is returned as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    axes = dict(named_axes(axes_tree))
+    names = rules.mesh.axis_names
+
+    def whole(name, x):
+        shape = tuple(shapes[name])
+        dims = [tuple(a for a in d if model_blocks is None or name in model_blocks
+                      or a != "model") for d in rules.dim_axes(axes[name], shape)]
+        if all(rules.shard_count(d) == 1 for d in dims):
+            return x
+        placements = [Replicate() for _ in names]
+        for d, mesh_axes in enumerate(dims):
+            for a in mesh_axes:
+                placements[names.index(a)] = Shard(d)
+        stride = torch.empty(shape, device="meta").stride()
+        return DTensor.from_local(x.contiguous(), rules.mesh.device_mesh, placements,
+                                  run_check=False, shape=torch.Size(shape),
+                                  stride=stride).full_tensor()
+
+    return tree_map_with_path(whole, blocks)
 
 
 def _tensor(arr, device):

@@ -52,6 +52,13 @@
 //   bits, which the serving snapshot/migrate path needs for a bit-identical
 //   continuation.  kv_len = 0 leaves no active split and writes zeros.  The
 //   workspace is the caller's, one per call.
+// * Where the caller asks for it, the combine also writes each (batch,
+//   query head)'s log-sum-exp of the scaled scores, m* + log(l), as fp32
+//   (-inf with no active split): the quantity that merges the outputs of
+//   attention over disjoint blocks of one sequence, as when a cache is split
+//   over ranks by position.  The Pallas kernel keeps the same m and l in
+//   scratch (m_ref, l_ref).  One thread of the CTA writes it; no extra
+//   launch.
 #include "common.cuh"
 
 namespace {
@@ -252,8 +259,9 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int DV>
 __global__ void __launch_bounds__(DV)
 flash_decode_combine_kernel(const int* __restrict__ kv_len_ptr,
-                            const float* __restrict__ part, T* __restrict__ o, int S, int H,
-                            int Hkv, int split, int ns) {
+                            const float* __restrict__ part, T* __restrict__ o,
+                            float* __restrict__ lse, int S, int H, int Hkv, int split,
+                            int ns) {
   const int G = H / Hkv;
   const int d = threadIdx.x, h = blockIdx.x, b = blockIdx.y, hk = h / G, g = h % G;
   const int kv_len = max(0, min(*kv_len_ptr, S));
@@ -282,11 +290,15 @@ flash_decode_combine_kernel(const int* __restrict__ kv_len_ptr,
     }
   }
   o[((int64_t)b * H + h) * DV + d] = rt::from_f32<T>(a / fmaxf(l, 1e-30f));
+  // an active split holds a position below kv_len, whose term in l is >= 1
+  if (lse != nullptr && d == 0)
+    lse[(int64_t)b * H + h] = n_active ? m_star + logf(l) : -__int_as_float(0x7f800000);
 }
 
 template <typename T, int DQ, int DV>
 int launch(const void* q, const void* k, const void* v, const void* kv_len, void* o,
-           void* part, int B, int S, int H, int Hkv, int GH, const long long* v_strides,
+           void* lse, void* part, int B, int S, int H, int Hkv, int GH,
+           const long long* v_strides,
            int split, int num_splits, float scale, cudaStream_t stream) {
   const int G = H / Hkv;
   if (GH <= 0 || G % GH != 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -306,19 +318,19 @@ int launch(const void* q, const void* k, const void* v, const void* kv_len, void
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_decode_combine_kernel<T, DV><<<dim3(H, B), DV, 0, stream>>>(
       static_cast<const int*>(kv_len), static_cast<const float*>(part), static_cast<T*>(o),
-      S, H, Hkv, split, num_splits);
+      static_cast<float*>(lse), S, H, Hkv, split, num_splits);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(int Dq, int Dv, const void* q, const void* k, const void* v,
-             const void* kv_len, void* o, void* part, int B, int S, int H, int Hkv, int GH,
-             const long long* v_strides, int split, int num_splits, float scale,
-             cudaStream_t st) {
+             const void* kv_len, void* o, void* lse, void* part, int B, int S, int H,
+             int Hkv, int GH, const long long* v_strides, int split, int num_splits,
+             float scale, cudaStream_t st) {
 #define RT_DIMS(DQ, DV)                                                                 \
   if (Dq == DQ && Dv == DV)                                                             \
-    return launch<T, DQ, DV>(q, k, v, kv_len, o, part, B, S, H, Hkv, GH, v_strides,    \
-                             split, num_splits, scale, st);
+    return launch<T, DQ, DV>(q, k, v, kv_len, o, lse, part, B, S, H, Hkv, GH,          \
+                             v_strides, split, num_splits, scale, st);
   RT_DIMS(32, 32) RT_DIMS(32, 64) RT_DIMS(32, 128)
   RT_DIMS(64, 32) RT_DIMS(64, 64) RT_DIMS(64, 128)
   RT_DIMS(128, 32) RT_DIMS(128, 64) RT_DIMS(128, 128)
@@ -340,7 +352,8 @@ extern "C" long long decode_attention_smem_bytes(int Dq, int Dv, int G, int elt)
 }
 
 // q (B,1,H,Dq), k (B,S,Hkv,Dq), kv_len one device int32, o (B,1,H,Dv), all
-// contiguous and 16-byte aligned; v (B,S,Hkv,Dv) with its last dimension
+// contiguous and 16-byte aligned; lse null, or B*H floats that receive each
+// (batch, query head)'s log-sum-exp of the scaled scores; v (B,S,Hkv,Dv) with its last dimension
 // contiguous and v_sb, v_ss, v_sh its batch, position and head strides in
 // elements, each a multiple of 16 bytes; q/k/v/o of one dtype (is_bf16 ?
 // bfloat16 : float32).  GH: query heads a CTA, a divisor of H/Hkv.  part:
@@ -350,8 +363,9 @@ extern "C" long long decode_attention_smem_bytes(int Dq, int Dv, int G, int elt)
 // on the stream: the split kernel, then the combine.  Returns a cudaError_t
 // as int; 0 means both were accepted.
 extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
-                                    const void* kv_len, void* o, void* part, int B, int S,
-                                    int H, int Hkv, int Dq, int Dv, int is_bf16, int GH,
+                                    const void* kv_len, void* o, void* lse, void* part,
+                                    int B, int S, int H, int Hkv, int Dq, int Dv,
+                                    int is_bf16, int GH,
                                     long long v_sb, long long v_ss, long long v_sh,
                                     int split, int num_splits, float scale, void* stream) {
   if (split <= 0 || split % DBK != 0 || num_splits <= 0 || num_splits > MAX_SPLITS ||
@@ -360,10 +374,10 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
   const long long v_strides[3] = {v_sb, v_ss, v_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return dispatch<__nv_bfloat16>(Dq, Dv, q, k, v, kv_len, o, part, B, S, H, Hkv, GH,
-                                   v_strides, split, num_splits, scale, st);
-  return dispatch<float>(Dq, Dv, q, k, v, kv_len, o, part, B, S, H, Hkv, GH, v_strides,
-                         split, num_splits, scale, st);
+    return dispatch<__nv_bfloat16>(Dq, Dv, q, k, v, kv_len, o, lse, part, B, S, H, Hkv,
+                                   GH, v_strides, split, num_splits, scale, st);
+  return dispatch<float>(Dq, Dv, q, k, v, kv_len, o, lse, part, B, S, H, Hkv, GH,
+                         v_strides, split, num_splits, scale, st);
 }
 
 extern "C" const char* decode_attention_error_string(int err) {

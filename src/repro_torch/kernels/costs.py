@@ -83,14 +83,16 @@ def flash(B: int, Sq: int, Skv: int, H: int, Hkv: int, Dq: int, Dv: int, elt: in
 
 
 def flash_decode(B: int, S: int, H: int, Hkv: int, Dq: int, Dv: int, kv_len: int, elt: int,
-                 v_is_k: bool = False) -> tuple[int, int]:
+                 v_is_k: bool = False, lse: bool = False) -> tuple[int, int]:
     """One query token against ``kv_len`` cache positions: q and the output
     once, K up to kv_len, V apart only where it is not a view of K's rows
-    (MLA's absorbed decode), and kv_len's own 4 bytes.  ``S``, the cache's
+    (MLA's absorbed decode), kv_len's own 4 bytes, and with ``lse`` the
+    float32 log-sum-exp of each (batch, query head).  ``S``, the cache's
     length, does not enter: positions past kv_len are never read."""
     flops = 2 * B * H * kv_len * (Dq + Dv)
     v_bytes = 0 if v_is_k else B * kv_len * Hkv * Dv
-    nbytes = elt * (B * H * (Dq + Dv) + B * kv_len * Hkv * Dq + v_bytes) + 4
+    nbytes = (elt * (B * H * (Dq + Dv) + B * kv_len * Hkv * Dq + v_bytes) + 4
+              + (4 * B * H if lse else 0))
     return flops, nbytes
 
 
@@ -148,14 +150,17 @@ def flash_call(q, k, v, *, causal: bool = True, scale=None) -> tuple[int, int]:
     return flash(B, Sq, k.shape[1], H, k.shape[2], Dq, v.shape[-1], q.element_size(), causal)
 
 
-def flash_decode_call(q, k, v, *, kv_len=None, scale=None) -> tuple[int, int]:
-    """A ``kv_len`` held in a tensor is charged as the whole cache: reading it
-    would wait for the device, and on the meta device it has no value."""
+def flash_decode_call(q, k, v, *, kv_len=None, scale=None,
+                      return_lse=False) -> tuple[int, int]:
+    """A ``kv_len`` held in a tensor is charged as the whole of ``k``'s
+    positions: reading it would wait for the device, and on the meta device
+    it has no value.  Where ``k`` is this rank's block of a cache split by
+    position (``parallel/tp.seq_block``), that is the block's length."""
     B, _, H, Dq = q.shape
     S = k.shape[1]
     n = S if kv_len is None or hasattr(kv_len, "device") else int(kv_len)
     return flash_decode(B, S, H, k.shape[2], Dq, v.shape[-1], min(n, S), q.element_size(),
-                        v_is_k=_same_storage(v, k))
+                        v_is_k=_same_storage(v, k), lse=return_lse)
 
 
 def ssd_call(x, dt, A_log, Bm, Cm, D, *, init_state=None, return_state=False):

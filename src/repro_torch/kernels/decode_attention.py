@@ -14,9 +14,13 @@ then a second launch on the same stream combines their partials in a fixed
 order (the source's header says how).  The split depends on the cache's
 length alone: never on ``kv_len``, which stays on the device, and never on
 the card, so a cache restored on another card decodes to the same bits.
-The partials go to a workspace allocated for each call.  For ``meta``
-tensors the wrapper returns an empty output of the kernel's shape and
-dtype and launches nothing; a call charges ``costs.flash_decode`` to an
+The partials go to a workspace allocated for each call.  With
+``return_lse`` the combine also writes each (batch, query head)'s
+log-sum-exp of the scaled scores (float32, ``-inf`` where ``kv_len`` is 0),
+which ``parallel/tp.merge_over_model`` needs to merge attention over blocks
+of a cache split by position; the buffer is allocated only when asked.  For
+``meta`` tensors the wrapper returns empty outputs of the kernel's shapes
+and dtypes and launches nothing; a call charges ``costs.flash_decode`` to an
 active cost recorder.
 """
 from __future__ import annotations
@@ -48,7 +52,7 @@ def _kernel():
     if _fn is None:
         lib = _build.load("decode_attention")
         fn = lib.decode_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                        + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -132,8 +136,10 @@ def _check(q, k, v):
 
 @costs.charged("flash_decode", costs.flash_decode_call)
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                 kv_len=None, scale=None) -> torch.Tensor:
-    """q: (B,1,H,Dq); k: (B,S,Hkv,Dq); v: (B,S,Hkv,Dv) -> (B,1,H,Dv).
+                 kv_len=None, scale=None, return_lse: bool = False):
+    """q: (B,1,H,Dq); k: (B,S,Hkv,Dq); v: (B,S,Hkv,Dv) -> (B,1,H,Dv), and
+    with ``return_lse`` also the float32 log-sum-exp (B,1,H) of the scaled
+    scores (``ref.attention``'s).
 
     ``kv_len``: None (the whole cache), an int, or a 0-d int32 tensor on the
     cache's device; positions >= kv_len are masked.  q and k are
@@ -144,7 +150,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if len(devices) != 1:
         raise ValueError(f"flash_decode: q, k, v on different devices {devices}")
     if q.device.type == "cpu":
-        return ref.attention(q, k, v, causal=False, kv_len=kv_len, scale=scale)
+        return ref.attention(q, k, v, causal=False, kv_len=kv_len, scale=scale,
+                             return_lse=return_lse)
     if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_decode: no kernel for device {q.device}")
     _check(q, k, v)
@@ -154,8 +161,10 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         scale = 1.0 / float(np.sqrt(Dq))
     kvl = _kv_len_tensor(kv_len, S, q.device)
     out = torch.empty((B, 1, H, Dv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, 1, H), dtype=torch.float32, device=q.device) if return_lse
+           else None)
     if out.numel() == 0 or out.is_meta:
-        return out
+        return (out, lse) if return_lse else out
     fn, err_str, _ = _kernel()
     G = H // Hkv
     gh = heads_per_cta(Dq, Dv, G, q.element_size())
@@ -165,10 +174,10 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ns = num_splits(S)
     part = torch.empty(B * Hkv * ns * G * (Dv + 2), dtype=torch.float32, device=q.device)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kvl.data_ptr(), out.data_ptr(),
-             part.data_ptr(), B, S, H, Hkv, Dq, Dv, DTYPES[q.dtype], gh, v.stride(0),
+             None if lse is None else lse.data_ptr(), part.data_ptr(), B, S, H, Hkv, Dq, Dv, DTYPES[q.dtype], gh, v.stride(0),
              v.stride(1), v.stride(2), split_size(S), ns, float(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_decode: kernel launch failed: {err_str(err).decode()}")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -53,17 +53,22 @@ def _resolve(impl, device: torch.device, what: str) -> str:
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, kv_len=None, impl: str = "auto",
-              decode: bool = False, scale=None) -> torch.Tensor:
+              decode: bool = False, scale=None, return_lse: bool = False):
+    """``return_lse`` (one query token only): also the float32 log-sum-exp
+    of the scaled scores, (B,1,H), as ``flash_decode`` returns it."""
     impl = _resolve(impl, q.device, "attention")
     Sq = q.shape[1]
     one_token = decode or Sq == 1
+    if return_lse and not one_token:
+        raise ValueError("return_lse is flash_decode's: one query token against a cache")
     if impl == "ring" and not one_token and kv_len is None:
         mesh = current_mesh()
         if mesh is not None and dict(zip(mesh.axis_names, mesh.shape)).get("model", 1) > 1:
             return ring_attention(q, k, v, mesh=mesh, scale=scale, causal=causal)
     # each wrapper takes the plain version for CPU tensors, the kernel for CUDA
     if one_token:
-        return decode_attention.flash_decode(q, k, v, kv_len=kv_len, scale=scale)
+        return decode_attention.flash_decode(q, k, v, kv_len=kv_len, scale=scale,
+                                             return_lse=return_lse)
     if kv_len is not None:
         raise ValueError("flash takes no kv_len; a prefill attends to its whole input")
     if q.device.type == "cpu" and causal and (

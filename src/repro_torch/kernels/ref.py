@@ -17,13 +17,18 @@ _M32 = 0xFFFFFFFF
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, kv_len=None, scale=None,
-              q_offset: int = 0) -> torch.Tensor:
+              q_offset: int = 0, return_lse: bool = False):
     """Naive masked attention.
 
     q: (B,Sq,H,Dq)   k: (B,Skv,Hkv,Dq)   v: (B,Skv,Hkv,Dv)  with H % Hkv == 0.
     ``kv_len`` (an int or a 0-d tensor) masks cache positions >= kv_len.
     ``q_offset`` shifts the causal diagonal (query i attends keys <=
     q_offset + i).  Computed in fp32; the result is in q's dtype.
+
+    ``return_lse``: also the float32 natural-log log-sum-exp of each
+    query's scaled, masked scores, (B,Sq,H): what merges the outputs of
+    attention over disjoint blocks of the keys.  A query with no key
+    (``kv_len`` 0) has an output of zeros and an lse of ``-inf``.
     """
     B, Sq, H, Dq = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -45,7 +50,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     p = torch.where(torch.isnan(p), torch.zeros_like(p), p)   # fully-masked rows
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+    o = o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.logsumexp(s, dim=-1)                  # (B,Hkv,G,Sq); -inf where no key
+    return o, lse.permute(0, 3, 1, 2).reshape(B, Sq, H)
 
 
 def recompute_grads(plain, saved, need, grad_outputs, **kw):

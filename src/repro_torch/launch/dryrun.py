@@ -9,13 +9,16 @@ and batch (``launch/specs.py``) on this rank with ``Rules`` through
 under ``launch/hlo_costs.py``'s walk.  The group is destroyed when the cell
 ends.
 
-The step is the port's own: ``train/step.py``'s train step (every
-parameter gathered whole, the batch's rows per rank, gradients summed over
-the batch ranks, the plain recompute as the kernels' backward), or, for
-serving, ``models/model.py::prefill`` / ``decode_step`` on this rank's rows
-with every parameter gathered whole (the port has no tensor-parallel
-compute).  Where that differs from the reference's compiled step, the
-numbers show it; nothing is scaled to match.
+The step is the port's own: ``train/step.py``'s train step (the batch's
+rows per rank, the tensor-parallel modules on this rank's "model" blocks and
+every other leaf gathered whole, gradients reduce-scattered over the batch
+ranks, the plain recompute as the kernels' backward), or, for serving,
+``serve/engine.py``'s ``prefill_step`` / ``decode_step`` on this rank's rows,
+on the parameters the engine computes on (``serving_params``: the same
+blocks) and, for decode, the cache as the engine holds it (its
+``serving_blocks`` as the rules' "model" blocks, every other leaf rows
+only).  Where that differs from the reference's compiled step, the numbers
+show it; nothing is scaled to match.
 
 For each cell this writes results/dryrun_torch/<arch>__<shape>__<mesh>.json:
   - memory: ``argument_size`` (this rank's bytes of its arguments),
@@ -49,48 +52,23 @@ MESHES = {"pod": (16, 16), "multipod": (2, 16, 16)}
 PARALLEL_CELLS = 4
 
 
-def _rows_rules(rules):
-    """Rules that split only the batch axis: a serving step's rows per rank."""
-    from repro_torch.parallel.mesh_rules import Rules
-
-    return Rules(rules.mesh, overrides={k: (p, []) for k, (p, _) in rules.table.items()
-                                        if k != "batch"})
-
-
-def _rows(tree, axes_tree, rows_rules):
-    """This rank's rows of each placed leaf, whole in every other dim: a
-    ``DTensor`` redistributed to the batch-only placement, a plain tensor
-    sliced."""
-    from repro_torch.parallel.mesh_rules import named_axes
-    from repro_torch.utils.tree import tree_map_with_path
-
-    axes = dict(named_axes(axes_tree))
-
-    def rows(name, x):
-        ax, shape = axes[name], tuple(x.shape)
-        if hasattr(x, "redistribute"):
-            return x.redistribute(placements=rows_rules.placements(ax, shape)).to_local()
-        return x[rows_rules.local_slices(ax, shape)]
-
-    return tree_map_with_path(rows, tree)
-
-
 def build_step(cfg, shape, rules, *, impl=None, microbatches=None, moment_dtype=None):
     """Returns (step function, its arguments placed on this rank of
     ``rules``' mesh, on the meta device)."""
-    from repro_torch.core.virtualization import full_tensor, place_tree
+    import torch
+
+    from repro_torch.core.virtualization import cut_tree, place_tree
     from repro_torch.launch import specs as SP
     from repro_torch.models import model as M
     from repro_torch.optim import adamw
-    from repro_torch.parallel.context import use_mesh_context
     from repro_torch.parallel.mesh_rules import batch_logical_axes
+    from repro_torch.serve import engine as E
     from repro_torch.train import step as TS
     from repro_torch.utils.tree import tree_map
 
     oc = adamw.OptConfig(moment_dtype=moment_dtype or (
         "bfloat16" if cfg.param_dtype == "bfloat16" else "float32"))
     kind, args = SP.input_specs(cfg, shape, oc)
-    batch_groups = rules.axis_group_size("batch")
 
     def place(tree, axes):
         return place_tree(tree, axes, rules, "meta")
@@ -101,32 +79,33 @@ def build_step(cfg, shape, rules, *, impl=None, microbatches=None, moment_dtype=
                                   microbatches=microbatches or SP.train_microbatches(cfg))
         return step, (place(state, TS.state_logical_axes(cfg)),
                       place(batch, batch_logical_axes(batch)))
-    rows_rules = _rows_rules(rules)
     pax = M.param_logical_axes(cfg)
+
+    def serving(params):
+        return E.serving_params(cfg, params, rules, impl)
+
     if kind == "prefill":
         params, batch = args
-        bax = batch_logical_axes(batch)
 
         def prefill_step(params, batch):
-            rows = _rows(batch, bax, rows_rules)
-            shards = shape.global_batch // rows["tokens"].shape[0]
-            with use_mesh_context(rules.mesh, rules):
-                return M.prefill(tree_map(full_tensor, params), cfg, rows, shape.seq_len,
-                                 impl=impl, moe_groups=max(1, batch_groups // shards))
+            return E.prefill_step(cfg, rules, serving(params), batch, shape.seq_len, impl=impl)
 
-        return prefill_step, (place(params, pax), place(batch, bax))
+        return prefill_step, (place(params, pax), place(batch, batch_logical_axes(batch)))
     params, cache, tokens = args
     cax = M.cache_logical_axes(cfg, shape.global_batch, shape.seq_len)
-    tax = ("batch",) + (None,) * (tokens.ndim - 1)
+    blocks = M.serving_blocks(cfg) if E.computes_on_blocks(cfg, rules, impl) else set()
+
+    def own(x):             # a meta leaf of its own (the walk tracks storages)
+        return torch.empty(x.shape, dtype=x.dtype, device="meta")
 
     def decode_step(params, cache, tokens):
-        with use_mesh_context(rules.mesh, rules):
-            return M.decode_step(tree_map(full_tensor, params), cfg,
-                                 _rows({"t": tokens}, {"t": tax}, rows_rules)["t"],
-                                 _rows(cache, cax, rows_rules), impl=impl)
+        return E.decode_step(cfg, rules, serving(params), tokens, cache, shape.seq_len,
+                             impl=impl)
 
-    return decode_step, (place(params, pax), place(cache, cax),
-                         place({"t": tokens}, {"t": tax})["t"])
+    tokens = cut_tree({"t": tokens}, {"t": ("batch",) + (None,) * (tokens.ndim - 1)},
+                      rules)["t"]
+    return decode_step, (place(params, pax), tree_map(own, cut_tree(cache, cax, rules, blocks)),
+                         own(tokens))
 
 
 def walk_cell(cfg, shape, mesh_shape, *, impl=None, microbatches=None, moment_dtype=None):

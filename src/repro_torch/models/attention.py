@@ -7,6 +7,13 @@ Two execution paths per mixer:
     on the card.  MLA decodes in *absorbed* form: attention in the latent
     space over the compressed cache, so the per-head K/V are never formed
     over the whole cache.
+
+Where the step computes on "model" blocks (``tp.on_blocks``: training, and
+serving over a mesh whose "model" axis has several ranks), GQA's products
+run on this rank's blocks of its weights, and a decode step reads this
+rank's block of the cache as the rules lay it out: its kv heads
+(``kv_heads_dim``), or its block of positions (``cache_seq``), whose
+attention is merged over "model" by log-sum-exp (``tp.merge_over_model``).
 """
 from __future__ import annotations
 
@@ -34,20 +41,6 @@ def gqa_spec(cfg: ModelConfig) -> dict:
     return s
 
 
-def _project_qkv(p, cfg: ModelConfig, x, positions, dt):
-    B, S, _ = x.shape
-    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = L.linear(p["wq"], x, dt).reshape(B, S, H, Dh)
-    k = L.linear(p["wk"], x, dt).reshape(B, S, Hkv, Dh)
-    v = L.linear(p["wv"], x, dt).reshape(B, S, Hkv, Dh)
-    if cfg.qk_norm:
-        q = L.rms_norm(p["q_norm"], q, cfg.norm_eps)
-        k = L.rms_norm(p["k_norm"], k, cfg.norm_eps)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
-
-
 def _heads(t, B, S, Dh, blk: bool, count: int, tpn: int, r: int):
     """A projection's output as (B, S, heads, Dh) and its first head: this
     rank's ``count / tpn`` heads where it is a block that splits at head
@@ -59,19 +52,14 @@ def _heads(t, B, S, Dh, blk: bool, count: int, tpn: int, r: int):
     return t.reshape(B, S, count, Dh), 0
 
 
-def gqa_full(p, cfg: ModelConfig, x, positions, impl=None):
-    """x: (B,S,D) -> (out, kv) ; kv returned for prefill cache construction.
-
-    Where the step computes on "model" blocks (``tp.on_blocks``), the
-    projections whose weights are blocks run on them, as the reference's
-    ``heads_dim`` / ``kv_heads_dim`` hints resolve: q keeps this rank's heads
-    where H divides the axis, else it is gathered and every head is
-    attended; k and v keep theirs where Hkv divides it, else they are
-    gathered and the kv heads of this rank's q heads (q head h reads kv head
-    h // (H / Hkv)) are sliced out; ``wo`` is row-parallel over the heads
-    attended here, or over its own block of them where every head was.  On
-    whole weights every step of that is the identity."""
-    dt = L.torch_dtype(cfg.compute_dtype)
+def _qkv(p, cfg: ModelConfig, x, positions, dt):
+    """q, k, v of ``x`` (B,S,D) as (B,S,heads,Dh), normed and rotated, with
+    q's and k's first heads, and the ``wo`` hints (``_out``): on this rank's
+    blocks of the weights where the step computes on "model" blocks, as the
+    reference's ``heads_dim`` / ``kv_heads_dim`` hints resolve.  q keeps
+    this rank's heads where H divides the axis, else it is gathered and has
+    every head; k and v likewise over Hkv.  On whole weights every step of
+    that is the identity."""
     B, S, _ = x.shape
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     spec = gqa_spec(cfg) if tp.on_blocks() else None
@@ -97,6 +85,37 @@ def gqa_full(p, cfg: ModelConfig, x, positions, impl=None):
         q, k = norm("q_norm", q, H), norm("k_norm", k, Hkv)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
+    return q, q0, k, k0, v, (blk["wo"], spec and spec["wo"])
+
+
+def _out(p, cfg: ModelConfig, out, wo, dt):
+    """``wo`` of the attention output ``out`` (B,S,heads,Dh): row-parallel
+    over the heads attended here where ``wo`` is a block (``_qkv``'s hints),
+    or over its own block of them where every head was; whole otherwise."""
+    B, S, hq, Dh = out.shape
+    blk, spec = wo
+    out = out.reshape(B, S, hq * Dh)
+    if blk and hq == cfg.num_heads:
+        out = tp.scatter_to_model(out, -1)
+    elif not blk and hq != cfg.num_heads:
+        out = tp.gather_from_model(out, -1)
+    return L.linear(p["wo"], out, dt, spec)
+
+
+def gqa_full(p, cfg: ModelConfig, x, positions, impl=None):
+    """x: (B,S,D) -> (out, (k, v)); k and v for the prefill's cache.
+
+    Where the step computes on "model" blocks (``tp.on_blocks``), the
+    projections run on this rank's blocks (``_qkv``); where k and v were
+    gathered, the kv heads of this rank's q heads (q head h reads kv head
+    h // (H / Hkv)) are sliced out for attention; ``wo`` is row-parallel
+    (``_out``).  The k and v returned are ``_qkv``'s, before that slice:
+    this rank's kv heads where Hkv divides the axis, every kv head
+    otherwise, the cache's ``kv_heads_dim`` and ``cache_seq`` blocks' heads."""
+    dt = L.torch_dtype(cfg.compute_dtype)
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    q, q0, k, k0, v, wo = _qkv(p, cfg, x, positions, dt)
+    kv = (k, v)
     hq, g = q.shape[2], H // Hkv
     lo, hi = q0 // g, (q0 + hq - 1) // g + 1           # the kv heads of this rank's q heads
     if (k0, k.shape[2]) != (lo, hi - lo):
@@ -109,35 +128,70 @@ def gqa_full(p, cfg: ModelConfig, x, positions, impl=None):
             k, v = tp.copy_to_model(k), tp.copy_to_model(v)    # gradients summed
         k, v = k[:, :, lo:hi].contiguous(), v[:, :, lo:hi].contiguous()
     out = ops.attention(q, k, v, causal=True, impl=impl or cfg.attn_impl)
-    out = out.reshape(B, S, hq * Dh)
-    if blk["wo"] and hq == H:
-        out = tp.scatter_to_model(out, -1)
-    elif not blk["wo"] and hq != H:
-        out = tp.gather_from_model(out, -1)
-    return L.linear(p["wo"], out, dt, spec and spec["wo"]), (k, v)
+    return _out(p, cfg, out, wo, dt), kv
 
 
-def gqa_decode(p, cfg: ModelConfig, x, cache_k, cache_v, t, impl=None):
+def _decode_attention(q, cache_k, cache_v, t, seq_len, impl, scale=None):
+    """One query token against a cache: the whole cache (or this rank's kv
+    heads of it) up to ``t``, or, with ``seq_len``, this rank's block of
+    positions of a cache of ``seq_len`` (``tp.seq_block``), merged over
+    "model" by log-sum-exp."""
+    if seq_len is None:
+        return ops.attention(q, cache_k, cache_v, causal=False, kv_len=t + 1, impl=impl,
+                             decode=True, scale=scale)
+    out, lse = ops.attention(q, cache_k, cache_v, causal=False,
+                             kv_len=tp.local_kv_len(t, seq_len), impl=impl, decode=True,
+                             scale=scale, return_lse=True)
+    return tp.merge_over_model(out, lse)
+
+
+def _write(cache, entry, t, seq_len) -> None:
+    """The new entry into the cache at ``t``: by the rank whose block of
+    positions holds it where ``seq_len`` is given (``tp.write_owned``)."""
+    if seq_len is None:
+        cache.index_copy_(1, t.reshape(1).long(), entry.to(cache.dtype))
+    else:
+        tp.write_owned(cache, entry, t, seq_len)
+
+
+def gqa_decode(p, cfg: ModelConfig, x, cache_k, cache_v, t, impl=None, seq_len=None):
     """One-token decode.  x: (B,1,D); cache_k/v: (B,Smax,Hkv,Dh); t: 0-d int32
     tensor on the cache's device.
 
     Writes the new entry into ``cache_k``/``cache_v`` IN PLACE at position
     ``t`` (the reference returns updated copies; updating in place saves a
     copy of the whole cache per layer and step) and returns them.  ``t`` stays
-    on the device: no ``.item()``, so a decode step never syncs the host."""
+    on the device: no ``.item()``, so a decode step never syncs the host.
+
+    On "model" blocks (``tp.on_blocks``) the cache is this rank's block of
+    it, as the rules lay it out: where it holds this rank's kv heads
+    (Hkv/P of them, ``kv_heads_dim``), q, k and v keep this rank's heads as
+    in ``gqa_full`` and attend there; where it holds every head, q, k and v
+    are made whole, and ``seq_len`` (the whole cache's length) says that
+    the cache is this rank's block of positions (``cache_seq``): the rank
+    that holds ``t`` writes the entry, each rank attends over its block and
+    the ranks' outputs merge over "model".  ``wo`` is row-parallel either
+    way (``_out``)."""
     dt = L.torch_dtype(cfg.compute_dtype)
     B = x.shape[0]
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
     positions = t.reshape(1, 1).expand(B, 1)
-    q, k_new, v_new = _project_qkv(p, cfg, x, positions, dt)
-    idx = t.reshape(1).long()
-    cache_k.index_copy_(1, idx, k_new.to(cache_k.dtype))
-    cache_v.index_copy_(1, idx, v_new.to(cache_v.dtype))
-    out = ops.attention(
-        q, cache_k.to(dt), cache_v.to(dt),
-        causal=False, kv_len=t + 1, impl=impl or cfg.attn_impl, decode=True,
-    )
-    out = out.reshape(B, 1, cfg.num_heads * cfg.head_dim)
-    return L.linear(p["wo"], out, dt), (cache_k, cache_v)
+    q, q0, k, k0, v, wo = _qkv(p, cfg, x, positions, dt)
+    if cache_k.shape[2] == Hkv:                     # every head: made whole
+        if q.shape[2] != H:
+            q = tp.gather_from_model(q, 2)
+        if k.shape[2] != Hkv:
+            k, v = tp.gather_from_model(k, 2), tp.gather_from_model(v, 2)
+    elif (k.shape[2], q.shape[2], q0) != (cache_k.shape[2], H * k.shape[2] // Hkv,
+                                          k0 * (H // Hkv)):
+        raise ValueError(f"a cache block of {cache_k.shape[2]} kv heads is not the heads "
+                         f"this rank's projections give ({k.shape[2]} from {k0}, q "
+                         f"{q.shape[2]} from {q0})")
+    _write(cache_k, k, t, seq_len)
+    _write(cache_v, v, t, seq_len)
+    out = _decode_attention(q, cache_k.to(dt), cache_v.to(dt), t, seq_len,
+                            impl or cfg.attn_impl)
+    return _out(p, cfg, out, wo, dt), (cache_k, cache_v)
 
 
 # ----------------------------------------------------------------------------------
@@ -212,7 +266,7 @@ def mla_scale(cfg: ModelConfig) -> float:
     return float(np.float32(1) / np.sqrt(np.float32(cfg.qk_head_dim)))
 
 
-def mla_decode(p, cfg: ModelConfig, x, cache, t, impl=None):
+def mla_decode(p, cfg: ModelConfig, x, cache, t, impl=None, seq_len=None):
     """Absorbed-form decode.  x: (B,1,D); cache: (B,Smax,kv_lora_rank + rope)
     compressed entries; t: 0-d int32 on the cache's device.
 
@@ -220,21 +274,23 @@ def mla_decode(p, cfg: ModelConfig, x, cache, t, impl=None):
     space with one kv head shared by all H query heads: q (B,1,H,R+rope)
     against the cache itself as K, and its first R columns (a view) as V.
     Writes the new entry into ``cache`` IN PLACE at position ``t`` and
-    returns it."""
+    returns it.  ``seq_len``: the whole cache's length where ``cache`` is
+    this rank's block of positions (``cache_seq`` on "model"), as in
+    ``gqa_decode``; MLA's weights are read whole, so every rank computes
+    every head."""
     dt = L.torch_dtype(cfg.compute_dtype)
     B = x.shape[0]
     H, R = cfg.num_heads, cfg.kv_lora_rank
     positions = t.reshape(1, 1).expand(B, 1)
     q_nope, q_rope = _mla_q(p, cfg, x, positions, dt)           # (B,1,H,*)
     c_new, kr_new = _mla_latent(p, cfg, x, positions, dt)       # (B,1,R), (B,1,rope)
-    entry = torch.cat([c_new, kr_new], dim=-1)
-    cache.index_copy_(1, t.reshape(1).long(), entry.to(cache.dtype))
+    _write(cache, torch.cat([c_new, kr_new], dim=-1), t, seq_len)
     k_cat = cache.to(dt)[:, :, None, :]                          # (B,S,1,R+rope)
     # absorb W_uk into q:  q_abs = q_nope @ W_uk  -> latent-space query
     q_abs = torch.einsum("bqhd,rhd->bqhr", q_nope, p["wk_b"].to(dt))  # (B,1,H,R)
     q_cat = torch.cat([q_abs, q_rope], dim=-1)                  # (B,1,H,R+rope)
-    out_lat = ops.attention(q_cat, k_cat, k_cat[..., :R], causal=False, kv_len=t + 1,
-                            impl=impl or cfg.attn_impl, decode=True, scale=mla_scale(cfg))
+    out_lat = _decode_attention(q_cat, k_cat, k_cat[..., :R], t, seq_len,
+                                impl or cfg.attn_impl, scale=mla_scale(cfg))
     out = torch.einsum("bqhr,rhd->bqhd", out_lat, p["wv_b"].to(dt))
     out = out.reshape(B, 1, H * cfg.v_head_dim)
     return L.linear(p["wo"], out, dt), cache

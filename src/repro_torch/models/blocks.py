@@ -12,7 +12,11 @@ Kinds, as in ``repro/models/blocks.py``:
 ``block_full`` returns the layer's MoE aux loss (None for a layer without
 MoE) beside its cache entry.
 Decode updates a layer's cache entry in place (the attention caches at the
-device ``t``, the SSM states by copy) and returns it.
+device ``t``, the SSM states by copy) and returns it.  Serving over "model"
+blocks passes the attention kinds' entries as this rank's blocks (the
+rules' ``kv_heads_dim`` or ``cache_seq``; ``seq_len`` says the latter);
+zamba2's shared block and every SSM state stay whole over "model", since
+those mixers compute whole.
 """
 from __future__ import annotations
 
@@ -163,18 +167,21 @@ def block_full(kind, p, cfg: ModelConfig, h, positions, *, moe_groups=16,
 
 
 def block_decode(kind, p, cfg: ModelConfig, h, cache, t, *, emb0=None, shared_p=None,
-                 impl=None):
+                 impl=None, seq_len=None):
     """Returns (h, cache); the cache entry (views into the model's cache) is
-    updated in place.  A MoE FFN routes the B tokens as one group."""
+    updated in place.  A MoE FFN routes the B tokens as one group.
+    ``seq_len``: the whole cache's length where an attention kind's entry is
+    this rank's block of positions (``attention.gqa_decode``)."""
     dt = L.torch_dtype(cfg.compute_dtype)
     if kind in ATTN_KINDS:
         xn = L.rms_norm(p["ln1"], h, cfg.norm_eps)
         if kind.startswith("mla"):
-            attn_out, ckv = A.mla_decode(p["attn"], cfg, xn, cache["ckv"], t, impl=impl)
+            attn_out, ckv = A.mla_decode(p["attn"], cfg, xn, cache["ckv"], t, impl=impl,
+                                         seq_len=seq_len)
             cache = {"ckv": ckv}
         else:
             attn_out, (k, v) = A.gqa_decode(p["attn"], cfg, xn, cache["k"], cache["v"], t,
-                                            impl=impl)
+                                            impl=impl, seq_len=seq_len)
             cache = {"k": k, "v": v}
         h = h + attn_out
         xn = L.rms_norm(p["ln2"], h, cfg.norm_eps)

@@ -15,7 +15,12 @@ Every plan of the reference serves: dense and MoE GQA decoders, MLA with
 dense and MoE FFNs (DeepSeek's first dense layers become a segment of
 their own), mamba2 with zamba2's shared-attention groups, rwkv6, and the
 codebook (musicgen) and image-token (llava) inputs; MLA's cache is
-``{"ckv": (L,B,S,kv_lora_rank + rope)}``.  Every plan trains: ``loss_fn`` is
+``{"ckv": (L,B,S,kv_lora_rank + rope)}``.  Serving over a mesh whose
+"model" axis has several ranks computes under ``tp.computing_on_blocks``
+(``serve/engine.py``): the attention segments' cache leaves
+(``serving_blocks``) are then this rank's blocks of the rules (its kv heads,
+or its block of positions), and ``prefill`` / ``decode_step`` return the
+logits made whole over the vocabulary.  Every plan trains: ``loss_fn`` is
 the reference's (the MoE aux loss, the MTP head's loss, the codebooks' mean
 cross entropy, the image-token mask), differentiated with autograd over a
 plain dict of tensors (``train/step.py``).  The reference's layer remat
@@ -37,6 +42,8 @@ from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamSpec
 from repro_torch.parallel import tp
 from repro_torch.parallel.collectives import group_sum
+from repro_torch.parallel.context import current_rules
+from repro_torch.parallel.mesh_rules import named_axes
 from repro_torch.utils.tree import (flatten_with_names, tree_leaves, tree_map,
                                     unflatten_like)
 
@@ -490,26 +497,78 @@ def cache_logical_axes(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
     return _cache_entries(cfg, batch, max_seq, lambda e: e[2])
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> dict:
-    def make(spec):
-        if isinstance(spec, dict):
-            return {k: make(v) for k, v in spec.items()}
-        return torch.zeros(spec[0], dtype=L.torch_dtype(spec[1]), device=device)
+def serving_blocks(cfg: ModelConfig) -> set:
+    """The cache leaves that serving over "model" blocks holds as this
+    rank's block of the rules' layout (``kv_heads_dim``, else ``cache_seq``,
+    on "model"): each attention segment's ``k`` and ``v`` (GQA) or ``ckv``
+    (MLA), whose modules compute on blocks.  Every other leaf (``t``,
+    zamba2's shared block's cache and every SSM state, whose mixers compute
+    whole) is whole over "model"; a rank holds its rows of it."""
+    out = set()
+    for i, seg in enumerate(layer_plan(cfg)):
+        if seg.kind in BL.ATTN_KINDS:
+            out |= {f"seg{i}/{n}" for n in (("ckv",) if seg.kind.startswith("mla")
+                                            else ("k", "v"))}
+    return out
 
-    return make(cache_specs(cfg, batch, max_seq))
+
+def _seq_lens(cfg: ModelConfig, max_seq) -> dict:
+    """{segment index: ``max_seq``} for each attention segment whose cache
+    the ambient rules split over "model" by position (``cache_seq``), where
+    the step computes on blocks; empty otherwise."""
+    rules = current_rules()
+    if not tp.on_blocks() or rules is None:
+        return {}
+    if max_seq is None:
+        raise ValueError("a decode step on 'model' blocks needs the whole cache's max_seq")
+    out = {}
+    for i, seg in enumerate(layer_plan(cfg)):
+        if seg.kind in BL.ATTN_KINDS:
+            shape, _, axes = next(iter(BL.cache_entry_spec(cfg, seg.kind, 1, max_seq).values()))
+            if tp.block_dims(axes, shape) == [1]:
+                out[i] = max_seq
+    return out
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> dict:
+    """A cache of zeros.  Under ``tp.computing_on_blocks`` each leaf of
+    ``serving_blocks`` is this rank's "model" block of it (``batch``: this
+    rank's rows)."""
+    blocks = serving_blocks(cfg) if tp.on_blocks() else set()
+    axes = dict(named_axes(cache_logical_axes(cfg, batch, max_seq)))
+
+    def make(spec, path):
+        if isinstance(spec, dict):
+            return {k: make(v, path + (k,)) for k, v in spec.items()}
+        name, shape = "/".join(path), spec[0]
+        if name in blocks:
+            shape = tp.block_shape(axes[name], shape)
+        return torch.zeros(shape, dtype=L.torch_dtype(spec[1]), device=device)
+
+    return make(cache_specs(cfg, batch, max_seq), ())
+
+
+def _whole_logits(params, cfg: ModelConfig, h):
+    """``logits_fn``, made whole over the vocabulary where the head is read
+    as a "model" block (serving's argmax reads every entry)."""
+    logits = logits_fn(params, cfg, h)
+    return logits if _logits_start(params, cfg) is None else tp.gather_logits(logits)
 
 
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, tokens_new: torch.Tensor, cache: dict, *,
-                impl=None):
+                impl=None, max_seq=None):
     """tokens_new: (B,) or (B,K) int.  Returns (fp32 logits (B,V) or (B,K,V),
     new cache).
 
     The new cache holds the SAME tensors as ``cache``, updated in place (the
     attention caches at position ``cache["t"]``, the recurrent states by
-    copy), and a new ``t``; the old ``t`` is left as it was."""
+    copy), and a new ``t``; the old ``t`` is left as it was.  Under
+    ``tp.computing_on_blocks`` the ``serving_blocks`` leaves of ``cache``
+    are this rank's blocks of a cache of ``max_seq`` positions."""
     tree = _tree(params)
     t = cache["t"]
+    seq_lens = _seq_lens(cfg, max_seq)
     h = embed_inputs(tree, cfg, {"tokens": tokens_new[:, None]})
     emb0 = h if cfg.shared_attn_period else None
     shared_p = tree.get("shared_attn")
@@ -518,10 +577,11 @@ def decode_step(params, cfg: ModelConfig, tokens_new: torch.Tensor, cache: dict,
         seg_c = cache[f"seg{i}"]
         for j, p in enumerate(_layers(params, i, seg.count)):
             h, _ = BL.block_decode(seg.kind, p, cfg, h, tree_map(lambda x, j=j: x[j], seg_c),
-                                   t, emb0=emb0, shared_p=shared_p, impl=impl)
+                                   t, emb0=emb0, shared_p=shared_p, impl=impl,
+                                   seq_len=seq_lens.get(i))
         new_cache[f"seg{i}"] = seg_c
     h = L.rms_norm(tree["final_norm"], h, cfg.norm_eps)
-    logits = logits_fn(tree, cfg, h)[:, 0]
+    logits = _whole_logits(tree, cfg, h)[:, 0]
     new_cache["t"] = t + 1
     return logits, new_cache
 
@@ -535,15 +595,22 @@ def _place(dst: torch.Tensor, src: torch.Tensor) -> None:
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, batch: dict, max_seq: int, *, impl=None,
             moe_groups=16):
-    """Full-sequence prefill; returns (last-position logits, cache of len max_seq)."""
+    """Full-sequence prefill; returns (last-position logits, cache of len
+    max_seq).  Under ``tp.computing_on_blocks`` the cache is this rank's
+    blocks (``init_cache``): its kv heads, which ``gqa_full`` computed, or
+    its block of positions of every head."""
     tokens = batch["tokens"]
     B, S = tokens.shape[:2]
     h, caches, _ = forward_full(params, cfg, batch, want_cache=True, moe_groups=moe_groups,
                                 impl=impl)
     full = init_cache(cfg, B, max_seq, tokens.device)
+    seq_lens = _seq_lens(cfg, max_seq)
     for i, entries in enumerate(caches):
         for j, entry in enumerate(entries):
+            if i in seq_lens:                       # this rank's block of positions
+                start, n = tp.seq_block(max_seq)
+                entry = tree_map(lambda x: x[:, start:start + n], entry)
             tree_map(lambda dst, src, j=j: _place(dst[j], src), full[f"seg{i}"], entry)
     full["t"] = torch.tensor(S, dtype=torch.int32, device=tokens.device)
-    logits = logits_fn(params, cfg, h[:, -1:])[:, 0]   # h already final-normed
+    logits = _whole_logits(params, cfg, h[:, -1:])[:, 0]   # h already final-normed
     return logits, full

@@ -20,7 +20,17 @@ so that an activation every "model" rank holds whole has the same, whole
 gradient on every rank, and a leaf every rank holds whole (a norm's scale, a
 module computed whole) has the same gradient on every rank.
 ``vocab_parallel_embed`` and ``vocab_parallel_ce`` are the embedding and the
-cross entropy on a block of the vocabulary.
+cross entropy on a block of the vocabulary; ``gather_logits`` makes a block
+of the logits whole for serving's argmax.
+
+Serving holds a KV (or MLA latent) cache as the rules give it: this rank's
+kv heads (``kv_heads_dim`` on "model"), or, where the kv heads do not split,
+this rank's block of positions (``cache_seq``, ``seq_block``).  Decode over
+a block of positions attends to ``local_kv_len`` of them, and
+``merge_over_model`` merges the ranks' outputs by their log-sum-exps, as the
+reference's partitioned softmax does; ``write_owned`` writes the new entry
+into the block that holds position ``t``.  ``t`` stays on the device in all
+of them: a decode step never syncs the host.
 
 The group is that of the ambient rules (``parallel/context.current_rules``)
 over "model"; where it is ``None`` (one rank on the axis, no rules: the
@@ -31,8 +41,9 @@ step enters ``computing_on_blocks`` where the "model" axis has several
 ranks and it gathered the leaves of ``models.model.tp_leaves`` as blocks.
 Only there do the modules read their weights' specs, and ``block_dim`` (or
 ``vocab_start``, the same rule) holds each weight to its spec under the
-rules: the whole leaf, or this rank's block of it.  Elsewhere (serving, the
-card, one rank) they take the plain path.  ``COUNTS["block_products"]``
+rules: the whole leaf, or this rank's block of it.  Serving decides it the
+same way (``serve/engine.py``).  Elsewhere (the card, one rank) they take
+the plain path.  ``COUNTS["block_products"]``
 counts the products that ran on a block (``layers.linear`` and the logits).
 """
 from __future__ import annotations
@@ -94,6 +105,23 @@ def block_dim(w: torch.Tensor, spec) -> Optional[int]:
         raise ValueError(f"a weight of shape {tuple(w.shape)} is neither the leaf "
                          f"{tuple(spec.shape)} nor its block over 'model' under the rules")
     return dims[0]
+
+
+def block_dims(axes, shape) -> list:
+    """The dims of a leaf of logical ``axes`` and whole ``shape`` that the
+    ambient rules split over "model" (where it has several ranks); [] with
+    no group."""
+    rules = current_rules()
+    if model_group() is None:
+        return []
+    return [d for d, a in enumerate(rules.dim_axes(axes, shape)) if a == ("model",)]
+
+
+def block_shape(axes, shape) -> tuple:
+    """The shape of this rank's "model" block of such a leaf."""
+    _, n = model_rank_size()
+    dims = block_dims(axes, shape)
+    return tuple(s // n if d in dims else s for d, s in enumerate(shape))
 
 
 def vocab_start(table: torch.Tensor, spec) -> Optional[int]:
@@ -242,3 +270,80 @@ def vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Te
     z term is the logsumexp squared.  Returns (ce_sum, z_sum), the same on
     every "model" rank."""
     return _VocabCE.apply(logits, labels, mask, vocab_start, model_group())
+
+
+def gather_logits(logits: torch.Tensor) -> torch.Tensor:
+    """A block of the logits along the vocabulary (the last dim) made whole
+    on every "model" rank, for serving's argmax; no grad."""
+    group = model_group()
+    return logits if group is None else _all_gather(logits, logits.ndim - 1, group)
+
+
+# ----------------------------------------------------------------------------------
+# A cache split over "model" by position (the rules' ``cache_seq``)
+# ----------------------------------------------------------------------------------
+
+
+def seq_block(S: int) -> tuple[int, int]:
+    """(first position, length) of this rank's block of a cache of ``S``
+    positions split over "model": ``[r S/P, (r+1) S/P)``; (0, S) with no
+    group.  Raises where P does not divide S."""
+    r, n = model_rank_size()
+    if S % n:
+        raise ValueError(f"a cache of {S} positions does not split over {n} 'model' ranks")
+    return r * (S // n), S // n
+
+
+def local_kv_len(t: torch.Tensor, S: int) -> torch.Tensor:
+    """The positions of this rank's block (``seq_block(S)``) that a query at
+    position ``t`` (a 0-d int32 on the device) attends to, ``clamp(t + 1 -
+    start, 0, S / P)``, as a 0-d int32 on ``t``'s device: computed there, so
+    the host never waits."""
+    start, n = seq_block(S)
+    return torch.clamp(t.reshape(()) + 1 - start, 0, n).to(torch.int32)
+
+
+def write_owned(cache: torch.Tensor, entry: torch.Tensor, t: torch.Tensor, S: int) -> None:
+    """Write ``entry`` (the new position's, (B, 1, ...)) into ``cache``, this
+    rank's block of a cache of ``S`` positions (dim 1), at ``t`` where the
+    block holds ``t``; elsewhere the block is written with its own values.
+    A masked ``index_copy_`` on the device: no ``.item()``."""
+    start, n = seq_block(S)
+    local = t.reshape(1).long() - start
+    inside = (local >= 0) & (local < n)
+    idx = torch.where(inside, local, torch.zeros_like(local))
+    old = cache.index_select(1, idx)
+    cache.index_copy_(1, idx, torch.where(inside, entry.to(cache.dtype), old))
+
+
+def merge_partials(outs, lses) -> torch.Tensor:
+    """The merge of attention outputs over disjoint blocks of the keys, in
+    the order given: ``outs`` (B,1,H,Dv) each, ``lses`` their float32
+    log-sum-exps (B,1,H).  ``lse* = max lse_r``, ``w_r = exp(lse_r - lse*)``
+    (0 for a block with no key, ``-inf``), ``out = sum w_r out_r / sum w_r``
+    in float32, zeros where no block has a key; in the outputs' dtype."""
+    m = lses[0]
+    for lse in lses[1:]:
+        m = torch.maximum(m, lse)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    num = den = None
+    for out, lse in zip(outs, lses):
+        w = torch.exp(lse - m)
+        term = out.float() * w[..., None]
+        num, den = (term, w) if num is None else (num + term, den + w)
+    merged = num / torch.where(den > 0, den, torch.ones_like(den))[..., None]
+    return merged.to(outs[0].dtype)
+
+
+def merge_over_model(out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """Attention over this rank's block of positions (``out`` (B,1,H,Dv) and
+    its ``lse`` (B,1,H)) merged with every "model" rank's: one all-gather of
+    both, then ``merge_partials`` in rank order, so every rank holds the
+    same bytes.  ``out`` itself with no group; no grad."""
+    group = model_group()
+    if group is None:
+        return out
+    both = torch.cat([out.float(), lse[..., None]], dim=-1)
+    parts = _all_gather(both[None], 0, group)
+    return merge_partials([p[..., :-1].to(out.dtype) for p in parts],
+                          [p[..., -1] for p in parts])

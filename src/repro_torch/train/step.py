@@ -36,7 +36,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.virtualization import full_tensor, gather_over
+from repro_torch.core.virtualization import cut_over, full_tensor, gather_over
 from repro_torch.kernels import costs
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import layers as L
@@ -173,15 +173,6 @@ def shard_batch(rules: Rules, batch: dict) -> tuple[dict, tuple]:
     return local, mesh_axes
 
 
-def _cut(rules: Rules, x, axes, shape, over) -> torch.Tensor:
-    """``x`` cut to this rank's block along the dims of ``shape`` that the
-    rules split over the mesh axes ``over``, whole along the others."""
-    slices = tuple(s if a and set(a) <= set(over) and rules.shard_count(a) > 1
-                   else slice(None)
-                   for s, a in zip(rules.local_slices(axes, shape), rules.dim_axes(axes, shape)))
-    return x if all(s == slice(None) for s in slices) else x[slices].contiguous()
-
-
 def _reduce_scatter(g, dim: int, group, rest) -> torch.Tensor:
     """``g`` summed over ``group`` and cut to this rank's block along
     ``dim`` (the group's rank order is the blocks'), then summed over
@@ -204,7 +195,7 @@ def own_block(rules: Rules, g, shape, axes, batch_axes) -> torch.Tensor:
     along the batch ranks' axes, the sum and the cut are one reduce-scatter
     (and an all-reduce over the batch axes left)."""
     if tuple(g.shape) == tuple(shape):
-        g = _cut(rules, g, axes, shape, ("model",))
+        g = cut_over(rules, g, axes, ("model",), shape).contiguous()
     split = [(d, a) for d, a in enumerate(rules.dim_axes(axes, shape))
              if a and a != ("model",) and rules.shard_count(a) > 1]
     group = rules.mesh.group(batch_axes)
@@ -214,7 +205,8 @@ def own_block(rules: Rules, g, shape, axes, batch_axes) -> torch.Tensor:
                                rules.mesh.group([x for x in batch_axes if x not in a]))
     if group is not None:
         dist.all_reduce(g, group=group)
-    return _cut(rules, g, axes, shape, [a for a in rules.mesh.axis_names if a != "model"])
+    others = [a for a in rules.mesh.axis_names if a != "model"]
+    return cut_over(rules, g, axes, others, shape).contiguous()
 
 
 def make_train_step(cfg: ModelConfig, oc: adamw.OptConfig, *,

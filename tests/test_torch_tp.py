@@ -29,6 +29,13 @@ Inputs: each arch's reduced config (4 layers, d_model 128, 4 / 2 heads of
     (tests/test_torch_dryrun.py accounts for the kernel's forward), at most
     1.10x at (2, 4) and (4, 2), at most 2.0x at (1, 8), where 4 heads do not
     split 8 ways and attention runs whole on every rank.
+    The serving steps likewise (``serve/engine.py``'s, on "model" blocks):
+    prefill B8 S32 and decode B8 at a cache of 64, at most 1.10x the
+    reference's at (2, 4) and (4, 2); at (1, 8) the FLOPs a rank are held
+    to their itemised account: the products and the last position's logits
+    split 8 ways, and ``flash``'s causal attention over every head and row
+    whole on every rank in prefill (4 heads do not split 8 ways); decode
+    equal to the reference's at every mesh.
 (e) In those walks no all-reduce of the gradient reduction carries a whole
     gradient of a leaf the rules split over "model"; such leaves are
     reduce-scattered.
@@ -73,6 +80,8 @@ NORM_RTOL = 1e-5
 # (d): per-device FLOPs of the walk over the reference's compiled step
 FLOPS_AT_ONE = 2_248_671_232
 FLOPS_RATIO = {"(2, 4)": 1.10, "(4, 2)": 1.10, "(1, 8)": 2.0}
+SERVE_KINDS = [("prefill", 32), ("decode", 64)]        # (kind, seq), B8
+SERVE_RATIO = 1.10
 
 _RANK = """
 from torch.distributed.tensor import DTensor
@@ -291,6 +300,9 @@ for mesh in MESHES:
     out[str(tuple(mesh))] = {
         "flops": walk.costs()["flops"], "all_reduces": reduced_here[:],
         "reduce_scatters": sum(r["n"] for r in grads if r["collective"][0] == "reduce-scatter")}
+    for kind, seq in SERVE_KINDS:
+        walk, _ = D.walk_cell(cfg, ShapeConfig(kind, kind, seq, 8), tuple(mesh))
+        out[f"{kind}|{tuple(mesh)}"] = walk.costs()["flops"]
 print(json.dumps(out))
 """
 
@@ -312,6 +324,13 @@ for shape in MESHES:
         lambda s, sh: jax.ShapeDtypeStruct(s.shape, s.dtype, sharding=sh), args, in_sh)
     with mesh:
         out[str(tuple(shape))] = analyze_hlo_text(step.lower(*args).compile().as_text())["flops"]
+    for kind, seq in SERVE_KINDS:
+        step, args, in_sh = D.build_step(cfg, ShapeConfig(kind, kind, seq, 8), mesh, impl="xla")
+        args = jax.tree_util.tree_map(
+            lambda s, sh: jax.ShapeDtypeStruct(s.shape, s.dtype, sharding=sh), args, in_sh)
+        with mesh:
+            out[f"{kind}|{tuple(shape)}"] = analyze_hlo_text(
+                step.lower(*args).compile().as_text())["flops"]
 print(json.dumps(out))
 """
 
@@ -322,7 +341,8 @@ def walks():
     subprocess of its own, the two run side by side."""
     env = {**os.environ, "PYTHONPATH": SRC, "JAX_PLATFORMS": "cpu"}
     env.pop("XLA_FLAGS", None)
-    pre = f"MESHES = {[list(m) for m in _WALK_MESHES]!r}\n"
+    pre = (f"MESHES = {[list(m) for m in _WALK_MESHES]!r}\n"
+           f"SERVE_KINDS = {SERVE_KINDS!r}\n")
     procs = [subprocess.Popen([sys.executable, "-c", pre + code], env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for code in (_PORT_WALK, _REF_WALK)]
@@ -343,6 +363,28 @@ def test_flops_a_rank_against_the_references_compiled_step(walks, mesh):
         assert got == FLOPS_AT_ONE
     else:
         assert got <= FLOPS_RATIO[str(mesh)] * want, (mesh, got, want, got / want)
+
+
+@pytest.mark.parametrize("mesh", _WALK_MESHES[1:], ids=str)
+@pytest.mark.parametrize("kind", [k for k, _ in SERVE_KINDS])
+def test_serving_flops_a_rank_against_the_references_compiled_step(walks, mesh, kind):
+    """(d), the serving steps."""
+    from repro_torch.kernels import costs
+
+    port, ref = walks
+    got, want = port[f"{kind}|{mesh}"], ref[f"{kind}|{mesh}"]
+    assert got <= SERVE_RATIO * want, (kind, mesh, got, want, got / want)
+    if kind == "decode":
+        assert got == want, (mesh, got, want)
+    elif mesh == (1, 8):
+        cfg = reduced(get_config("qwen2-0.5b"))
+        D, F, V, L = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.num_layers
+        H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        S = dict(SERVE_KINDS)["prefill"]
+        per_token = 2 * L * (D * (2 * H + 2 * Hkv) * Dh + 3 * D * F)
+        products = (B * S * per_token + 2 * B * D * V) // 8
+        attention = L * costs.flash(B, S, S, H, Hkv, Dh, Dh, 4)[0]
+        assert got == products + attention, (got, products, attention)
 
 
 @pytest.mark.parametrize("mesh", _WALK_MESHES[1:], ids=str)
