@@ -65,9 +65,12 @@ Phases, in order; any failure exits non-zero:
 7. train: the C/R loop through ``repro_torch.launch.train --ckpt-delta
    --ckpt-device-fp`` at full width and 4 of qwen2-0.5b's 24 layers (a 2.35
    GB state), as subprocesses: A uninterrupted, B cut by its walltime (exit
-   85), C requeued on B's checkpoint; A and C must end on the same loss and
-   the same chunk hashes, and the launch counts must show every attention
-   and every save's fingerprinting on the kernels;
+   85), C requeued on B's checkpoint; B and C run as a job of one rank (the
+   launcher's ``RANK`` ... ``MASTER_PORT``: an NCCL group of one, whose
+   all-reduce agrees on each step's exit) and A without a group; A and C
+   must end on the same loss and the same chunk hashes, the metrics must
+   name the group, and the launch counts must show every attention and
+   every save's fingerprinting on the kernels;
 8. fleet: a publisher pushes full-width qwen2-0.5b weights (delta
    checkpoints and the registry's push plane); ``repro_torch.launch.serve
    --follow --pipeline-uploads`` as a subprocess must serve the step pushed
@@ -1600,14 +1603,27 @@ def train_child(argv: list) -> int:
     return train.main(["--arch", arch, *argv[2:]])
 
 
-def _train_run(work: Path, arch: str, tag: str, ckpt: str, extra: list) -> tuple[int, dict]:
+def _rank_env() -> dict:
+    """The launcher's variables of a job of one rank on this card (a free
+    port of its own): the trainer joins an NCCL group of one."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    return {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+            "MASTER_PORT": str(port)}
+
+
+def _train_run(work: Path, arch: str, tag: str, ckpt: str, extra: list,
+               ranks: bool = False) -> tuple[int, dict]:
     out = work / f"{tag}.json"
     cmd = train_cmd(arch, work / ckpt, out, extra)
     launched = time.time()
     t0 = time.perf_counter()
     try:
-        r = subprocess.run(cmd, env=_child_env(), capture_output=True, text=True,
-                           timeout=TRAIN_RUN_DEADLINE_S)
+        r = subprocess.run(cmd, env={**_child_env(), **(_rank_env() if ranks else {})},
+                           capture_output=True, text=True, timeout=TRAIN_RUN_DEADLINE_S)
     except subprocess.TimeoutExpired as e:
         raise AssertionError(f"train run {tag} ({arch}) passed its deadline of "
                              f"{TRAIN_RUN_DEADLINE_S}s and was killed; its output ended:\n"
@@ -1622,7 +1638,8 @@ def _train_run(work: Path, arch: str, tag: str, ckpt: str, extra: list) -> tuple
     log(f"  run {tag}: exit {r.returncode} in {wall:.1f}s, steps "
         f"{[s['step'] for s in steps]}, start {m['start_step']}, restore_s "
         f"{m['restore_s'] if m['restore_s'] is None else round(m['restore_s'], 3)}, "
-        f"launches {m['launches']}")
+        f"launches {m['launches']}, ranks {m['ranks']}"
+        + (f", group started in {m['ranks_start_s']:.3f}s" if m.get("ranks_start_s") else ""))
     log("    step ms " + " ".join(f"{s['ms']:.1f}" for s in steps)
         + "  losses " + " ".join(repr(s["loss"]) for s in steps))
     log(f"    wall: {steps[0]['t'] - steps[0]['ms'] / 1e3 - launched:.1f}s to the first step, "
@@ -1678,21 +1695,27 @@ def saved_bytes(*runs) -> int:
     return sum(sv.get("bytes_written") or 0 for m in runs for sv in m["saves"])
 
 
-def phase_train(work: Path, arch: str) -> dict:
+def phase_train(work: Path, arch: str, ranks: bool = False) -> dict:
     """The paper's C/R loop at full width and TRAIN_LAYERS[arch] layers, as a
     user runs it: A uninterrupted; B with a walltime its margin exceeds, so it
     checkpoints after its first step and exits 85; C requeued on B's
-    directory, restoring and finishing."""
+    directory, restoring and finishing.  With ``ranks``, B and C run as a job
+    of one rank (the launcher's variables): an NCCL group of one is up, and
+    every step boundary's agreement all-reduce runs on it; A has no group."""
     fp_per_save, nbytes = fp_launches_for(arch, TRAIN_LAYERS[arch])
     log(f"  {arch} at {TRAIN_LAYERS[arch]} layers: a {nbytes} byte state "
         f"({nbytes / 1e9:.2f} GB), {fp_per_save} fingerprint launches per save")
     rc_a, a = _train_run(work, arch, "A", "a", [])
     hashes_a = _final_hashes(work / "a")
     shutil.rmtree(work / "a")
-    rc_b, b = _train_run(work, arch, "B", "b", ["--walltime", "0.5", "--margin", "100"])
-    rc_c, c = _train_run(work, arch, "C", "b", [])
+    rc_b, b = _train_run(work, arch, "B", "b", ["--walltime", "0.5", "--margin", "100"], ranks)
+    rc_c, c = _train_run(work, arch, "C", "b", [], ranks)
     if (rc_a, rc_b, rc_c) != (0, 85, 0):
         raise AssertionError(f"exit codes A/B/C {(rc_a, rc_b, rc_c)}, expected (0, 85, 0)")
+    want = {"world": 1, "backend": "nccl" if ranks else None}
+    if a["ranks"] != {"world": 1, "backend": None} or b["ranks"] != want or c["ranks"] != want:
+        raise AssertionError(f"ranks A {a['ranks']} B {b['ranks']} C {c['ranks']}: expected A "
+                             f"without a group, B and C {want}")
     if [s["step"] for s in b["steps"]] != [0] or c["start_step"] != 1:
         raise AssertionError("B must stop after step 0 and C resume at step 1")
     loss_a, loss_c = a["steps"][-1]["loss"], c["steps"][-1]["loss"]
@@ -2969,8 +2992,9 @@ def main() -> int:
               "profiled step, saves")
         state_rep = phase_state(work)
         phase(f"phase 7 train qwen2-0.5b at full width and {TRAIN_LAYERS['qwen2-0.5b']} layers "
-              "through the C/R loop (--ckpt-delta --ckpt-device-fp): A, B preempted, C requeued")
-        train_rep = phase_train(work, "qwen2-0.5b")
+              "through the C/R loop (--ckpt-delta --ckpt-device-fp): A, B preempted, C "
+              "requeued; B and C as a job of one rank (an NCCL group of one)")
+        train_rep = phase_train(work, "qwen2-0.5b", ranks=True)
         phase("phase 8 fleet: serve --follow at full width (qwen2-0.5b) on pushed weights")
         fleet_rep = phase_fleet(work)
         phase("phase 9 scheduler: SlurmSim preempts the phase 7 trainer and requeues it "

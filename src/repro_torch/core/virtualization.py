@@ -21,7 +21,8 @@ import torch
 
 from repro_torch.checkpoint.serialization import host_array, to_torch
 from repro_torch.parallel.mesh_rules import named_axes
-from repro_torch.utils.tree import tree_map, tree_map_with_path
+from repro_torch.utils.tree import (flatten_with_names, tree_map, tree_map_with_path,
+                                    unflatten_like)
 
 
 def cut_over(rules, x, axes, over, shape=None):
@@ -133,6 +134,40 @@ def gather_over(x, mesh_axes):
     names = x.device_mesh.mesh_dim_names
     return x.redistribute(placements=[Replicate() if n in mesh_axes else pl
                                       for n, pl in zip(names, x.placements)]).to_local()
+
+
+def owned_tree(device_tree, axes_tree, rules, rank: int, world: int):
+    """The leaves this rank writes in a checkpoint of ``world`` workers (leaf
+    ``i``, in ``flatten_with_names`` order, belongs to worker ``i % world``,
+    as ``checkpoint/manager.py`` lays a save out): each of them whole, and
+    an empty placeholder in place of every other leaf (the manager reads
+    only its own).  A leaf the mesh splits (a ``DTensor``) is gathered to
+    its owner alone, one leaf at a time (``dist.gather`` of the blocks:
+    every rank calls, leaf by leaf), so no rank holds a leaf whole that it
+    does not write.  On one rank: ``device_tree`` itself."""
+    if world == 1:
+        return device_tree
+    import torch.distributed as dist
+
+    axes = dict(named_axes(axes_tree))
+    named = flatten_with_names(device_tree)
+    out = {}
+    for i, (name, x) in enumerate(named):
+        owner = i % world
+        if hasattr(x, "to_local"):
+            local = x.to_local().contiguous()
+            blocks = [torch.empty_like(local) for _ in range(world)] if rank == owner else None
+            dist.gather(local, blocks, dst=owner)
+            if rank == owner:
+                shape = tuple(x.shape)
+                whole = torch.empty(shape, dtype=local.dtype, device=local.device)
+                for r, block in enumerate(blocks):
+                    sl = rules.local_slices(axes[name], shape, rules.mesh.coordinate_of(r))
+                    whole[sl] = block
+                x = whole
+            del local, blocks
+        out[name] = x if rank == owner else torch.empty(0, dtype=x.dtype)
+    return unflatten_like(device_tree, out)
 
 
 def fetch_tree(device_tree):

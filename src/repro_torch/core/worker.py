@@ -169,3 +169,38 @@ class InlineCoordinator:
 
     def close(self):
         pass
+
+
+class GroupCoordinator(InlineCoordinator):
+    """``InlineCoordinator`` for the ranks of a ``torch.distributed`` group,
+    where the group is the coordinator: every rank writes its part
+    (``save_fn``, then ``written_fn`` until its writes are on the store), a
+    barrier (phase one), rank 0 commits the manifest of ``world`` parts,
+    and a second barrier holds every rank until the manifest exists, so
+    the next save of any rank diffs against it.  Every rank calls
+    ``service`` at the same step boundaries (the requests come from
+    sources that every rank agrees on)."""
+
+    def __init__(self, commit_fn, *, rank: int, world: int, written_fn=None):
+        super().__init__(commit_fn=commit_fn)
+        self.rank, self.world = rank, world
+        self.written_fn = written_fn
+
+    def service(self, step: int, save_fn, **_) -> Optional[dict]:
+        import torch.distributed as dist
+
+        req, self._pending = self._pending, None
+        if req is None:
+            return None
+        t0 = time.time()
+        save_fn(step)
+        if self.written_fn is not None:
+            self.written_fn()
+        dist.barrier()
+        manifest = self.commit_fn(step, num_workers=self.world) if self.rank == 0 else {}
+        dist.barrier()
+        rec = {"type": P.COMMIT, "step": step, "reason": req["reason"],
+               "duration_s": time.time() - t0,
+               "manifest_step": manifest.get("step") if self.rank == 0 else step}
+        self.history.append(rec)
+        return rec

@@ -8,15 +8,97 @@ one device of a process that was not launched as a rank).  Rank ``r`` sits
 at the row-major coordinate ``r`` of the grid, as device ``r`` does in the
 reference's meshes.  Functions, not module-level constants: importing this
 module starts no process group.
+
+``start_ranks`` starts the group of a job launched as ranks, from the
+variables a launcher sets (``torchrun``, or ``srun`` with them exported):
+one process per GPU over NCCL, or gloo ranks on the CPU.  Without them it
+starts nothing, and ``make_host_mesh`` is (1, 1).
 """
 from __future__ import annotations
 
+import dataclasses
+import datetime
 import math
-from typing import Sequence
+import os
+import socket
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+
+RANK_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+@dataclasses.dataclass(frozen=True)
+class Ranks:
+    """This process's place in a group started by ``start_ranks``."""
+
+    rank: int
+    world: int
+    local_rank: int
+    backend: str
+    device: torch.device
+
+
+def start_ranks(device="cuda", timeout_s: float = 600.0) -> Optional[Ranks]:
+    """Join the process group that the launcher's environment describes
+    (``RANK_VARS``; ``init_method="env://"``) with a collective timeout of
+    ``timeout_s``: NCCL on ``cuda:LOCAL_RANK`` for a CUDA ``device``, gloo
+    on the CPU.  With none of the variables set it starts nothing and
+    returns ``None``.  A CUDA rank needs a GPU of its own: ``LOCAL_RANK``
+    past the visible GPUs, no GPU at all, or two ranks of one host on one
+    GPU (NCCL puts no two ranks of a communicator on one device) fail with a
+    message; a rank never falls back to the CPU."""
+    env = {k: os.environ.get(k) for k in RANK_VARS}
+    if all(v is None for v in env.values()):
+        return None
+    missing = [k for k, v in env.items() if v is None]
+    if missing:
+        raise RuntimeError(f"a rank needs all of {', '.join(RANK_VARS)}; "
+                           f"{', '.join(missing)} not set")
+    rank, world, local = int(env["RANK"]), int(env["WORLD_SIZE"]), int(env["LOCAL_RANK"])
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"rank {rank}: no CUDA device found; pass --device cpu "
+                               "for gloo ranks on the CPU")
+        if local >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"rank {rank}: LOCAL_RANK {local} has no GPU of its own "
+                f"({torch.cuda.device_count()} visible): start one rank per GPU")
+        dev = torch.device("cuda", local)
+        torch.cuda.set_device(dev)
+        backend = "nccl"
+    else:
+        backend = "gloo"
+    dist.init_process_group(backend, init_method="env://", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=timeout_s))
+    if backend == "nccl":
+        _refuse_shared_gpus(rank, world, dev)
+    return Ranks(rank, world, local, backend, dev)
+
+
+def _refuse_shared_gpus(rank: int, world: int, dev: torch.device) -> None:
+    """Through the group's store (no NCCL call): fail where two ranks of one
+    host hold one GPU."""
+    store = dist.distributed_c10d._get_default_store()
+    gpu = getattr(torch.cuda.get_device_properties(dev), "uuid", None) or dev.index
+    mine = f"{socket.gethostname()}/{gpu}"
+    store.set(f"repro_gpu/{rank}", mine)
+    holders = [store.get(f"repro_gpu/{r}").decode() for r in range(world)]
+    shared = [r for r, h in enumerate(holders) if h == mine and r != rank]
+    if shared:
+        dist.destroy_process_group()
+        raise RuntimeError(f"rank {rank} shares {dev} with ranks {shared}: NCCL puts no two "
+                           "ranks on one GPU; start one rank per GPU")
+
+
+def stop_ranks() -> None:
+    """Leave the process group, where one is up."""
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def _names(shape: Sequence[int]) -> tuple:
@@ -50,6 +132,13 @@ class Mesh:
         if self.size != 1:
             raise ValueError(f"the abstract mesh {self} has no rank of this process")
         return (0,) * len(self.shape)
+
+    def coordinate_of(self, rank: int) -> tuple:
+        """The coordinate on the grid of the group's ``rank``."""
+        if self.device_mesh is None:
+            return self.coordinate
+        where = np.argwhere(self.device_mesh.mesh.cpu().numpy() == rank)
+        return tuple(int(i) for i in where[0])
 
     def group(self, axes: Sequence[str]):
         """The process group of the ranks that differ from this one only along

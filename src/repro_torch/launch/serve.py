@@ -15,6 +15,14 @@ full float32 (TF32 off), as on the CPU.
 ``--num-layers N`` serves the arch at its width with its depth cut to N
 layers (deepseek-v3-671b at 2 layers fits one card).
 
+Ranks: launched as the ranks of a job (the launcher's ``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``; one process
+per GPU, or gloo ranks with ``--device cpu``), it joins their group
+(``launch.mesh.start_ranks``) and each rank serves its rows of the batch on
+the (world, 1) mesh.  The tokens are gathered whole on every rank; rank 0
+saves the (mesh-free) snapshot and prints the report, and every rank
+restores it and continues its rows.  ``--follow`` runs on one process only.
+
 Fleet mode (``--follow``): the checkpoint prefix holds PARAMETER checkpoints
 pushed by a trainer (``CheckpointManager`` + ``registry.announce_push``).
 This replica restores the latest push read-only, serves batches, and between
@@ -29,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import sys
 import time
 from pathlib import Path
@@ -36,13 +45,14 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import serialization as SER
 from repro_torch.checkpoint.manager import CheckpointManager, CheckpointPolicy
 from repro_torch.checkpoint.store import TieredStore, node_local_tier_roots
 from repro_torch.configs.base import ModelConfig, cut_depth, get_config, reduced as reduce_cfg
 from repro_torch.kernels import decode_attention, flash_attention
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import make_host_mesh, start_ranks, stop_ranks
 from repro_torch.models import model as M
 from repro_torch.parallel.mesh_rules import Rules
 from repro_torch.sched.cache_registry import REGISTRY_DIRNAME, CacheRegistry
@@ -75,6 +85,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; the kernels run only on cuda")
+    ap.add_argument("--report-out", default=None,
+                    help="write the report (the tokens as lists) here as JSON")
+    ap.add_argument("--dist-timeout", type=float, default=600.0,
+                    help="ranks: seconds a collective waits before it fails")
     # fleet follower mode
     ap.add_argument("--follow", action="store_true",
                     help="serve as a weight-sync follower of --ckpt-dir")
@@ -308,11 +322,15 @@ def run(args: argparse.Namespace, model: Optional[M.LM] = None) -> dict:
     report["prefill_warm_ms"] = (_synced() - t0) * 1e3
     first = eng.generate(args.snapshot_at)
     mgr = CheckpointManager(TieredStore(Path(args.ckpt_dir)))
+    lead = rules.mesh.device_mesh is None or dist.get_rank() == 0
     try:
-        snap = eng.snapshot()
+        snap = eng.snapshot()               # whole: every rank gathers
         t0 = _synced()
-        mgr.save(0, snap)
-        mgr.commit(0)
+        if lead:
+            mgr.save(0, snap)
+            mgr.commit(0)
+        if rules.mesh.device_mesh is not None:
+            dist.barrier()                  # the snapshot is committed
         report["save_s"] = time.perf_counter() - t0
         report["snapshot_bytes"] = tree_bytes(snap)
         del eng
@@ -331,9 +349,27 @@ def run(args: argparse.Namespace, model: Optional[M.LM] = None) -> dict:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.follow:
-        return follow(args)
-    rep = run(args)
+    ranks = start_ranks(resolve_device(args.device), args.dist_timeout)
+    try:
+        if args.follow:
+            if ranks is not None:
+                sys.exit("--follow serves on one process; it does not run as ranks")
+            return follow(args)
+        rep = run(args)
+        if args.report_out and (ranks is None or ranks.rank == 0):
+            Path(args.report_out).write_text(json.dumps({
+                **{k: v for k, v in rep.items() if k != "tokens"},
+                "tokens": rep["tokens"].tolist(),
+                "ranks": {"world": ranks.world if ranks else 1,
+                          "backend": ranks.backend if ranks else None}}))
+        if ranks is not None and ranks.rank != 0:
+            return 0 if rep["match"] is not False else 1
+        return _print_report(args, rep)
+    finally:
+        stop_ranks()
+
+
+def _print_report(args: argparse.Namespace, rep: dict) -> int:
     print(f"device {rep['device']}: prefill {rep['prefill_ms']:.1f} ms, "
           f"decode {rep['decode_ms_per_token']:.2f} ms/token")
     if rep["match"] is None:

@@ -19,9 +19,25 @@ Behaviour:
   * optionally attaches to an external checkpoint coordinator
     (--coordinator host:port --worker-id N) for multi-worker rounds.
 
-It builds ``launch.mesh.make_host_mesh()`` and ``Rules(mesh)`` and hands them
-to the train step and to the restore's placement, as the reference's does;
-one rank runs it (multi-rank launching is not ported), so the mesh is (1, 1).
+Ranks: launched as the ranks of a job (``torchrun``, or ``srun`` with
+``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``
+exported; one process per GPU, NCCL, or gloo ranks with ``--device cpu``),
+it joins their group (``launch.mesh.start_ranks``) and trains on the
+(world, 1) mesh of ``make_host_mesh()`` with ``Rules(mesh)``, as the
+reference's one process does over every local device; with none of those
+variables it starts no group and the mesh is (1, 1).  Rank ``r`` is worker
+``r`` of ``world`` in the checkpoint (leaf ``i`` belongs to worker
+``i % world``): it writes the leaves it owns, each gathered to it alone, and
+rank 0 commits the manifest once every rank's part is written.  Every step
+boundary agrees on one exit reason over the ranks (one all-reduce), so a
+signal that reaches one rank checkpoints all of them at the same step, and
+every rank exits with the same code.  Only rank 0 writes ``--metrics-out``,
+the requeue record and the node-local promotion.
+
+Preemption signals are recorded from the module's first lines, before torch
+is imported (``core.signals.record_early``): a warning during start-up
+becomes a checkpoint at the first step boundary and exit 85, not the
+default action, which kills the process.
 
 Runs on the GPU unless ``--device cpu`` is given; with no GPU and no
 ``--device cpu`` it fails.  Bit-identical resume on the card needs
@@ -30,19 +46,31 @@ imported, deterministic algorithms on (``_deterministic``) and TF32 off while
 ``main`` runs.  ``--metrics-out`` writes ``{"steps": [{step, loss, t, ms}],
 "saves": [per-save delta stats], "launches": {kernel: count},
 "restore_s": ..., "restore_stats": {tier, bytes_by_tier, promoted, ...},
-"start_step": ...}``.
+"start_step": ..., "ranks": {"world": W, "backend": "nccl" | "gloo" | null},
+"ranks_start_s": seconds to join the group | null}``.
 """
 from __future__ import annotations
 
-import os
+if __name__ == "__main__":
+    # first: record SIGTERM / SIGUSR1 while the imports below run (seconds;
+    # tens of seconds on a loaded node), for main's trap to take over
+    from repro_torch.core.signals import record_early
+
+    record_early()
+
+import os  # noqa: E402
 
 # before torch is imported: cuBLAS picks its workspace (and with it the
 # reduction order of its products) when it first starts
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+# and OpenMP its wait policy: a CPU run's threads sleep between parallel
+# regions instead of spinning, which on a loaded node stalls them on one
+# another (reduced qwen2, 8 cores shared with 48 busy processes: 20 s a step
+# spinning, 0.8 s sleeping); the same threads, so the same results
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")
 
 import argparse  # noqa: E402
 import json  # noqa: E402
-import signal  # noqa: E402
 import sys  # noqa: E402
 import time  # noqa: E402
 from pathlib import Path  # noqa: E402
@@ -55,13 +83,14 @@ from repro_torch.configs.base import get_config, reduced as reduce_cfg  # noqa: 
 from repro_torch.core.cr_manager import CRManager  # noqa: E402
 from repro_torch.core.requeue import RequeueFile, WalltimeTracker, detect_node  # noqa: E402
 from repro_torch.core.signals import SignalTrap  # noqa: E402
-from repro_torch.core.worker import CkptClient, InlineCoordinator  # noqa: E402
+from repro_torch.core.virtualization import fetch_tree, place_tree  # noqa: E402
+from repro_torch.core.worker import CkptClient, GroupCoordinator, InlineCoordinator  # noqa: E402
 from repro_torch.data.pipeline import PipelineState, SyntheticTokens  # noqa: E402
 from repro_torch.kernels import checksum as CK  # noqa: E402
 from repro_torch.kernels import flash_attention  # noqa: E402
 from repro_torch.kernels import ssd as SSD  # noqa: E402
 from repro_torch.kernels import wkv6 as WKV  # noqa: E402
-from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh, start_ranks, stop_ranks  # noqa: E402
 from repro_torch.launch.serve import resolve_device  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.parallel.mesh_rules import Rules  # noqa: E402
@@ -160,8 +189,12 @@ def build_argparser():
     ap.add_argument("--walltime", type=float, default=0.0)
     ap.add_argument("--margin", type=float, default=5.0)
     ap.add_argument("--coordinator", default=None, help="host:port")
-    ap.add_argument("--worker-id", type=int, default=0)
-    ap.add_argument("--num-workers", type=int, default=1)
+    ap.add_argument("--worker-id", type=int, default=None,
+                    help="this worker's id (default 0; a rank's is its RANK)")
+    ap.add_argument("--num-workers", type=int, default=None,
+                    help="workers writing each checkpoint (default 1; ranks: WORLD_SIZE)")
+    ap.add_argument("--dist-timeout", type=float, default=600.0,
+                    help="ranks: seconds a collective waits before it fails")
     ap.add_argument("--metrics-out", default=None)
     ap.add_argument("--step-sleep", type=float, default=0.0,
                     help="artificial per-step delay (benchmark pacing)")
@@ -200,27 +233,53 @@ def main(argv=None) -> int:
         sys.exit("--ckpt-predump/--ckpt-fingerprint/--ckpt-device-fp "
                  "require --ckpt-delta")
     device = resolve_device(args.device)
-    # trap preemption signals from the very start: a USR1 during start-up /
-    # restore must checkpoint-and-requeue, not kill the process (default USR1
-    # action is terminate) — the paper's startup-time lesson (Fig. 2) applies
-    # to the C/R loop itself.
+    # the trap takes over a signal recorded since the module's first line
+    # and traps from here on: a USR1 during start-up / restore must
+    # checkpoint-and-requeue, not kill the process — the paper's startup-time
+    # lesson (Fig. 2) applies to the C/R loop itself.
     trap = SignalTrap()
     trap.__enter__()
+    if trap.early is not None:
+        print(f"[train] signal {trap.early[0]} arrived during start-up ("
+              f"{'before' if trap.early[1] else 'after'} torch finished importing): "
+              "checkpoint at the first step boundary", flush=True)
     numerics = (torch.are_deterministic_algorithms_enabled(),
                 torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     _deterministic(True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        return _run(args, device, trap)
+        t0 = time.perf_counter()
+        ranks = start_ranks(device, args.dist_timeout)
+        start_s = time.perf_counter() - t0 if ranks is not None else None
+        if ranks is not None:
+            if args.coordinator:
+                sys.exit("--coordinator with ranks: the ranks' process group "
+                         "coordinates their checkpoints")
+            given = (args.worker_id, args.num_workers)
+            if given != (None, None) and given != (ranks.rank, ranks.world):
+                sys.exit(f"--worker-id/--num-workers {given} contradict rank "
+                         f"{ranks.rank} of {ranks.world}")
+            device = ranks.device
+        return _run(args, device, trap, ranks, start_s)
     finally:
+        stop_ranks()
         _deterministic(numerics[0])
         torch.backends.cuda.matmul.allow_tf32 = numerics[1]
         torch.backends.cudnn.allow_tf32 = numerics[2]
         trap.__exit__(None, None, None)
 
 
-def _run(args, device: torch.device, trap: SignalTrap) -> int:
+def _run(args, device: torch.device, trap: SignalTrap, ranks, start_s) -> int:
+    rank, world = ((ranks.rank, ranks.world) if ranks is not None
+                   else (args.worker_id or 0, args.num_workers or 1))
+    lead = ranks is None or rank == 0           # writes the run's records
+    say = print if lead else (lambda *a, **k: None)
+    prefix = f"[rank {rank}] " if ranks is not None and world > 1 else ""
+
+    def log(msg: str) -> None:
+        print(prefix + msg, flush=True)
+
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
@@ -265,15 +324,18 @@ def _run(args, device: torch.device, trap: SignalTrap) -> int:
                               hash_workers=args.hash_workers,
                               compress=args.ckpt_compress,
                               io_batch=args.io_batch,
-                              promote=args.ckpt_promote,
+                              promote=args.ckpt_promote if lead else "off",
                               promote_tier=args.ckpt_promote_tier)
-    ckpt = CheckpointManager(store, policy, worker_id=args.worker_id,
-                             num_workers=args.num_workers, peer_roots=peers,
+    ckpt = CheckpointManager(store, policy, worker_id=rank,
+                             num_workers=world, peer_roots=peers,
                              node=node, registry=registry)
 
     if args.coordinator:
         host, port = args.coordinator.rsplit(":", 1)
-        client = CkptClient(host, int(port), args.worker_id)
+        client = CkptClient(host, int(port), rank)
+    elif ranks is not None:
+        client = GroupCoordinator(ckpt.commit, rank=rank, world=world,
+                                  written_fn=ckpt.wait_writes)
     else:
         client = InlineCoordinator(commit_fn=ckpt.commit)
 
@@ -291,15 +353,20 @@ def _run(args, device: torch.device, trap: SignalTrap) -> int:
                     predump=args.ckpt_predump,
                     predump_lead=args.ckpt_predump_lead,
                     cfg=cfg, rules=rules, device=device, node=node,
-                    peers=peers or None)
-
-    def init_fn():
-        return TS.init_train_state(cfg, oc, args.seed, device)
+                    peers=peers or None, ranks=ranks, log=log)
 
     # template for restore: the state's tree as meta tensors (host arrays are
     # laid out for the mesh by their logical axes)
     templates = {"state": TS.abstract_train_state(cfg, oc)}
     axes = {"state": TS.state_logical_axes(cfg)}
+
+    def init_fn():
+        if rules.mesh.size == 1:
+            return TS.init_train_state(cfg, oc, args.seed, device)
+        # every rank draws the same state (per-leaf generators) and keeps its blocks
+        return place_tree(fetch_tree(TS.init_train_state(cfg, oc, args.seed, "cpu")),
+                          axes["state"], rules, device)
+
     t0 = _synced(device)
     state, meta, start_step = crm.restore_or_init(init_fn, templates, axes)
     restore_s = _synced(device) - t0
@@ -320,13 +387,13 @@ def _run(args, device: torch.device, trap: SignalTrap) -> int:
         metrics_log.append({"step": step, "loss": loss, "t": time.time(),
                             "ms": step_ms})
         if step % 10 == 0 or step == args.steps - 1:
-            print(f"step {step} loss {loss:.4f}", flush=True)
+            say(f"step {step} loss {loss:.4f}", flush=True)
 
         extra = {"data_state": pipe.state().to_dict()}
         action = crm.step_boundary(step, lambda: state, extra_meta=extra)
         if action == "exit":
-            crm.request_requeue(step, reason=crm.exit_reason() or "")
-            print(f"[train] interrupted at step {step} -> requeue", flush=True)
+            crm.request_requeue(step, reason=crm.exit_cause or "")
+            log(f"[train] interrupted at step {step} -> requeue")
             exit_code = REQUEUE_EXIT
             break
     else:
@@ -334,23 +401,27 @@ def _run(args, device: torch.device, trap: SignalTrap) -> int:
         crm.checkpoint_now(args.steps - 1, lambda: state, reason="final",
                            extra_meta={"data_state": pipe.state().to_dict(),
                                        "completed": True})
-        print(f"[train] completed {args.steps} steps", flush=True)
+        say(f"[train] completed {args.steps} steps", flush=True)
 
-    if args.metrics_out:
+    if args.metrics_out and lead:
         Path(args.metrics_out).write_text(json.dumps({
             "steps": metrics_log, "saves": crm.saves,
             "launches": {k: n - launches0[k] for k, n in _launch_counts().items()},
             "restore_s": restore_s if meta is not None else None,
             "restore_stats": ckpt.last_restore_stats if meta is not None else None,
-            "start_step": start_step, "device": str(device)}))
+            "start_step": start_step, "device": str(device),
+            "ranks": {"world": world if ranks is not None else 1,
+                      "backend": ranks.backend if ranks is not None else None},
+            "ranks_start_s": start_s}))
     crm.close()
     return exit_code
 
 
 if __name__ == "__main__":
-    # ignored outside ``main``'s trap, which puts this back when it returns: a
-    # scheduler's warning that lands once the run is over must not kill the
-    # process on its way out (the exit code is the run's)
-    for sig in SignalTrap().signals:
-        signal.signal(sig, signal.SIG_IGN)
-    sys.exit(main())
+    code = main()
+    # leave without tearing the interpreter down (seconds on a loaded node,
+    # which a scheduler's hard limit may cut): the run's checkpoint is
+    # committed and its group left; a signal that lands now is only recorded
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
