@@ -26,7 +26,8 @@ Phases, in order; any failure exits non-zero:
    (back-to-back calls between CUDA events, bounded by the host), the plain
    version's time (events) and the bound (``kernels/costs.py``'s formula at
    ``launch/roofline.py``'s rates); among them MLA's: ``flash`` at
-   (Dq, Dv) = (192, 128) with 128 heads, ``flash_decode`` at the absorbed
+   (Dq, Dv) = (192, 128) with 128 heads, and with the 8 heads a rank
+   computes where "model" has 16 ranks, ``flash_decode`` at the absorbed
    shape (one kv head for 128 query heads, Dq 576, Dv 512, V a strided view
    of K's rows, the caller's scale), and both at reduced MLA's (48, 32);
    ``flash_decode``'s log-sum-exp (``return_lse``) at every case against
@@ -120,10 +121,12 @@ Phases, in order; any failure exits non-zero:
    within 5e-4 of the (2, 1) restore's, and the card's re-save of the
    restored state keeps the CPU save's chunk hashes bit for bit; (d) on the
    same two CPU ranks at (1, 2), reduced qwen2-0.5b (its cache a kv head a
-   rank) and reduced deepseek-v3 (MLA's latent cache 16 positions a rank)
-   serve on "model" blocks and snapshot at token 4 (the whole cache,
-   gathered); the card restores each snapshot at (1, 1) and continues with
-   the ranks' tokens, flash_decode once a layer a step;
+   rank) and reduced deepseek-v3 (MLA's latent cache 16 positions a rank,
+   its products on 2 of the 4 heads a rank) serve on "model" blocks, each
+   rank's count of products on a block at least the attention's four a
+   layer a step, and snapshot at token 4 (the whole cache, gathered); the
+   card restores each snapshot at (1, 1) and continues with the ranks'
+   tokens, flash_decode once a layer a step;
 13. analysis: (a) phase 2's bounds read as PERF.md's table prints them
    (EXPECTED_BOUNDS); (b) a train step of qwen2-0.5b at full width and 8
    layers on the card under ``launch/hlo_costs.py``'s walk against the dry
@@ -284,8 +287,9 @@ ELASTIC_OPT = {"warmup_steps": 2, "decay_steps": 10}
 ELASTIC_TOL = 5e-4
 # phase 12(d): serving over "model" blocks on the two CPU ranks at (1, 2),
 # reduced qwen2-0.5b (its cache on kv_heads_dim: 2 kv heads, a head a rank)
-# and reduced deepseek-v3 (MLA's latent on cache_seq: 16 positions a rank),
-# B4, prompts of 12, a cache of 32, a snapshot at token 4 and 4 tokens after it
+# and reduced deepseek-v3 (MLA's latent on cache_seq: 16 positions a rank;
+# its products on 2 of the 4 heads a rank), B4, prompts of 12, a cache of 32,
+# a snapshot at token 4 and 4 tokens after it
 SERVE_TP_ARCHS = ("qwen2-0.5b", "deepseek-v3-671b")
 SERVE_TP = {"batch": 4, "prompt": 12, "max_seq": 32, "snap_at": 4, "after": 4}
 # the card's continuation against the ranks': phase 4's limit (card and CPU)
@@ -481,7 +485,12 @@ FLASH_SHAPES = [("qwen2-0.5b prefill", 4, 512, 14, 2, 64, 64, "qwen2-0.5b"),
                 ("granite-moe-3b-a800m train forward", 8, 128, 24, 8, 64, 64,
                  "train-granite-moe"),
                 ("deepseek-v3-671b MLA train forward", 8, 128, 128, 128, 192, 128,
-                 "train-deepseek-v3")]
+                 "train-deepseek-v3"),
+                # one rank's 8 of the 128 heads where "model" has 16 ranks (the
+                # production mesh's): no run of this script launches it, the card
+                # being one rank
+                ("deepseek-v3-671b MLA prefill, a rank's heads at model 16", 4, 512, 8, 8,
+                 192, 128, "deepseek-v3-671b over model 16")]
 DECODE_KV_LEN = 544      # the serve phases' last position: prompt 512 + 32
 # flash_decode's log-sum-exp against the plain version's, of max(|lse|, 1):
 # the kernel and the plain version both sum in float32 (bfloat16 only in the
@@ -543,6 +552,7 @@ def phase_kernels() -> dict:
         (2, 70, 4, 4, 48, 32, "float32", True),
         (8, 128, 24, 8, 64, 64, "bfloat16", True),       # granite-moe's train forward
         (8, 128, 128, 128, 192, 128, "bfloat16", True),  # deepseek-v3's MLA train forward
+        (4, 512, 8, 8, 192, 128, "bfloat16", True),    # its prefill on a rank's heads, model 16
     ]
     worst = 0.0
     for B, S, H, Hkv, Dq, Dv, dtn, causal in flash_cases:
@@ -2356,8 +2366,10 @@ def _serve_tp_ranks(work: Path, rank: int) -> dict:
     goes on; the cache blocks' shapes, the tokens after the snapshot and
     the last logits."""
     import torch
+    import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import tp
     from repro_torch.parallel.mesh_rules import Rules
     from repro_torch.serve.engine import Engine
     from repro_torch.utils.tree import flatten_with_names
@@ -2368,16 +2380,20 @@ def _serve_tp_ranks(work: Path, rank: int) -> dict:
         cfg, model, prompts = _serve_tp_setup(arch, "cpu")
         eng = Engine(cfg, model, batch=SERVE_TP["batch"], max_seq=SERVE_TP["max_seq"],
                      rules=rules)
+        tp.COUNTS["block_products"] = 0
         eng.prefill(prompts)
         eng.generate(SERVE_TP["snap_at"])
         snap = eng.snapshot()
         tokens = eng.generate(SERVE_TP["after"])
+        counts = [None] * dist.get_world_size()
+        dist.all_gather_object(counts, tp.COUNTS["block_products"])
         if rank == 0:
             torch.save({**snap, "logits": eng.whole_rows(eng.last_logits)},
                        work / f"serve-{arch}.pt")
         out[arch] = {"tokens": tokens.tolist(), "blocks": sorted(eng.blocks),
                      "shapes": {n: list(x.shape) for n, x in flatten_with_names(eng.cache)
-                                if n in eng.blocks}}
+                                if n in eng.blocks},
+                     "block_products": counts}
     return out
 
 
@@ -2643,8 +2659,12 @@ def _serve_tp_card(work: Path, cpu: dict) -> dict:
         err = float((eng.last_logits.float() - want).abs().max())
         scale = float(want.abs().max())
         same = tokens.tolist() == ranks["tokens"]
+        # the attention's four products a layer a step at least (MLA's wq_b, wk_b,
+        # wv_b and wo on a rank's 2 of 4 heads; GQA's wq, wk, wv and wo)
+        least = 4 * cfg.num_layers * (1 + SERVE_TP["snap_at"] + SERVE_TP["after"])
         log(f"  (d) {arch} reduced, B{SERVE_TP['batch']} cache {SERVE_TP['max_seq']}: two CPU "
-            f"ranks at (1, 2) serve on \"model\" blocks (cache blocks {ranks['shapes']}) and "
+            f"ranks at (1, 2) serve on \"model\" blocks (products on a block, rank 0 / 1: "
+            f"{ranks['block_products']}, at least {least}; cache blocks {ranks['shapes']}) and "
             f"snapshot at token {SERVE_TP['snap_at']}; the card restores the whole snapshot at "
             f"(1, 1): its {SERVE_TP['after']} tokens equal the ranks': {same}; last logits "
             f"max_abs_err {err:.3g} (tol {SERVE_TP_LOGIT_TOL} of {scale:.3g}); flash_decode "
@@ -2654,7 +2674,11 @@ def _serve_tp_card(work: Path, cpu: dict) -> dict:
                                  f"{tokens.tolist()} / {ranks['tokens']}, logits {err}")
         if launched != SERVE_TP["after"] * cfg.num_layers:
             raise AssertionError(f"{arch}: flash_decode launched {launched} times")
-        out[arch] = {"tokens_equal": same, "logit_err": err, "flash_decode": launched}
+        if min(ranks["block_products"]) < least:
+            raise AssertionError(f"{arch}: the (1, 2) ranks computed {ranks['block_products']} "
+                                 f"products on \"model\" blocks, fewer than {least}")
+        out[arch] = {"tokens_equal": same, "logit_err": err, "flash_decode": launched,
+                     "block_products": ranks["block_products"]}
     return out
 
 # ----------------------------------------------------------------------------------
@@ -2675,6 +2699,7 @@ EXPECTED_BOUNDS = {
     ("flash", "reduced deepseek-v3 MLA prefill (phase 4)"): "0.00002",
     ("flash", "granite-moe-3b-a800m train forward"): "0.00250",
     ("flash", "deepseek-v3-671b MLA train forward"): "0.05008",
+    ("flash", "deepseek-v3-671b MLA prefill, a rank's heads at model 16"): "0.00626",
     ("flash_decode", "qwen2-0.5b decode"): "0.00034",
     ("flash_decode", "zamba2-1.2b decode"): "0.00533",
     ("flash_decode", "qwen3-4b decode"): "0.00268",

@@ -9,11 +9,12 @@ Two execution paths per mixer:
     over the whole cache.
 
 Where the step computes on "model" blocks (``tp.on_blocks``: training, and
-serving over a mesh whose "model" axis has several ranks), GQA's products
-run on this rank's blocks of its weights, and a decode step reads this
-rank's block of the cache as the rules lay it out: its kv heads
-(``kv_heads_dim``), or its block of positions (``cache_seq``), whose
-attention is merged over "model" by log-sum-exp (``tp.merge_over_model``).
+serving over a mesh whose "model" axis has several ranks), GQA's and MLA's
+products run on this rank's blocks of their weights (its heads, where they
+split), and a decode step reads this rank's block of the cache as the rules
+lay it out: its kv heads (``kv_heads_dim``), or its block of positions
+(``cache_seq``), whose attention is merged over "model" by log-sum-exp
+(``tp.merge_over_model``).
 """
 from __future__ import annotations
 
@@ -90,8 +91,9 @@ def _qkv(p, cfg: ModelConfig, x, positions, dt):
 
 def _out(p, cfg: ModelConfig, out, wo, dt):
     """``wo`` of the attention output ``out`` (B,S,heads,Dh): row-parallel
-    over the heads attended here where ``wo`` is a block (``_qkv``'s hints),
-    or over its own block of them where every head was; whole otherwise."""
+    over the heads attended here where ``wo`` is a block (the hints of
+    ``_qkv`` or ``_mla_heads``), or over its own block of them where every
+    head was; whole otherwise."""
     B, S, hq, Dh = out.shape
     blk, spec = wo
     out = out.reshape(B, S, hq * Dh)
@@ -221,13 +223,41 @@ def mla_spec(cfg: ModelConfig) -> dict:
     return s
 
 
-def _mla_q(p, cfg: ModelConfig, x, positions, dt):
+def _mla_heads(p, cfg: ModelConfig):
+    """(whether ``p`` holds this rank's heads of the head-split weights, the
+    ``wo`` hints for ``_out``) where the step computes on "model" blocks:
+    ``wq_b`` (or ``wq``), ``wk_b`` and ``wv_b`` are this rank's H/P heads
+    where the rules split ``heads_dim`` (H divides the axis), else whole;
+    ``wo`` (``heads``: H x v_head_dim rows) is a block wherever its rows
+    split.  (False, (False, None)) elsewhere."""
+    if not tp.on_blocks():
+        return False, (False, None)
+    spec = mla_spec(cfg)
+    local = [tp.block_dim(p[n], spec[n]) is not None
+             for n in ("wq_b", "wq", "wk_b", "wv_b") if n in p]
+    wo = tp.block_dim(p["wo"]["w"], spec["wo"]["w"]) is not None
+    return all(local), (wo, spec["wo"])
+
+
+def _per_head(eq: str, a, w, dt, local: bool):
+    """``einsum(eq, a, w)`` of an up-projection over the heads (``w`` this
+    rank's block of them where ``local``)."""
+    if local:
+        tp.COUNTS["block_products"] += 1
+    return torch.einsum(eq, a, w.to(dt))
+
+
+def _mla_q(p, cfg: ModelConfig, x, positions, dt, local: bool):
+    """q's nope and (rotated) rope parts, (B,S,heads,*): this rank's heads
+    where ``local`` (``_mla_heads``), the whole ``cq`` (or ``x``) entering
+    them through ``tp.copy_to_model``."""
     nope = cfg.qk_nope_head_dim
+    into = tp.copy_to_model if local else (lambda t: t)
     if cfg.q_lora_rank:
         cq = L.rms_norm(p["q_norm"], L.linear(p["wq_a"], x, dt), cfg.norm_eps)
-        q = torch.einsum("bsr,rhd->bshd", cq, p["wq_b"].to(dt))
+        q = _per_head("bsr,rhd->bshd", into(cq), p["wq_b"], dt, local)
     else:
-        q = torch.einsum("bsD,Dhd->bshd", x.to(dt), p["wq"].to(dt))
+        q = _per_head("bsD,Dhd->bshd", into(x).to(dt), p["wq"], dt, local)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     return q_nope, L.apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -243,20 +273,29 @@ def _mla_latent(p, cfg: ModelConfig, x, positions, dt):
 def mla_full(p, cfg: ModelConfig, x, positions, impl=None):
     """Expanded MLA for prefill: the per-head K and V are formed from the
     latent, and the shared rope key is broadcast over the heads.  Returns
-    (out, the compressed cache (B,S,kv_lora_rank + rope))."""
+    (out, the compressed cache (B,S,kv_lora_rank + rope)).
+
+    Where the step computes on "model" blocks and the rules split the heads
+    (``_mla_heads``), q, K and V are this rank's H/P heads: the latent
+    ``c_kv`` and the rope key, the same on every rank (``wkv_a`` and
+    ``kv_norm`` are whole), enter them through ``tp.copy_to_model``, and
+    attention runs on those heads.  ``wo`` is row-parallel (``_out``), over
+    this rank's heads or, where every head was attended (H does not divide
+    the axis), over its own block of them.  The cache returned is whole."""
     dt = L.torch_dtype(cfg.compute_dtype)
     B, S, _ = x.shape
-    H = cfg.num_heads
-    q_nope, q_rope = _mla_q(p, cfg, x, positions, dt)
+    local, wo = _mla_heads(p, cfg)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions, dt, local)
     c_kv, k_rope = _mla_latent(p, cfg, x, positions, dt)
-    k_nope = torch.einsum("bsr,rhd->bshd", c_kv, p["wk_b"].to(dt))
-    v = torch.einsum("bsr,rhd->bshd", c_kv, p["wv_b"].to(dt))
+    c_h, kr_h = (tp.copy_to_model(c_kv), tp.copy_to_model(k_rope)) if local else (c_kv, k_rope)
+    k_nope = _per_head("bsr,rhd->bshd", c_h, p["wk_b"], dt, local)
+    v = _per_head("bsr,rhd->bshd", c_h, p["wv_b"], dt, local)
+    h = k_nope.shape[2]
     q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, cfg.qk_rope_head_dim)],
+    k = torch.cat([k_nope, kr_h[:, :, None, :].expand(B, S, h, cfg.qk_rope_head_dim)],
                   dim=-1)
     out = ops.attention(q, k, v.contiguous(), causal=True, impl=impl or cfg.attn_impl)
-    out = out.reshape(B, S, H * cfg.v_head_dim)
-    return L.linear(p["wo"], out, dt), torch.cat([c_kv, k_rope], dim=-1)
+    return _out(p, cfg, out, wo, dt), torch.cat([c_kv, k_rope], dim=-1)
 
 
 def mla_scale(cfg: ModelConfig) -> float:
@@ -276,21 +315,32 @@ def mla_decode(p, cfg: ModelConfig, x, cache, t, impl=None, seq_len=None):
     Writes the new entry into ``cache`` IN PLACE at position ``t`` and
     returns it.  ``seq_len``: the whole cache's length where ``cache`` is
     this rank's block of positions (``cache_seq`` on "model"), as in
-    ``gqa_decode``; MLA's weights are read whole, so every rank computes
-    every head."""
+    ``gqa_decode``.
+
+    On "model" blocks with the heads split (``_mla_heads``), the absorbed
+    query is formed from this rank's blocks of ``wq_b`` and ``wk_b``; over
+    a block of positions it is gathered to every head (B,1,H,R+rope), which
+    attends there and merges over "model", and this rank's heads of the
+    merged latent output go on through its block of ``wv_b``.  ``wo`` is
+    row-parallel (``_out``)."""
     dt = L.torch_dtype(cfg.compute_dtype)
     B = x.shape[0]
-    H, R = cfg.num_heads, cfg.kv_lora_rank
+    R = cfg.kv_lora_rank
     positions = t.reshape(1, 1).expand(B, 1)
-    q_nope, q_rope = _mla_q(p, cfg, x, positions, dt)           # (B,1,H,*)
+    local, wo = _mla_heads(p, cfg)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions, dt, local)    # (B,1,heads,*)
     c_new, kr_new = _mla_latent(p, cfg, x, positions, dt)       # (B,1,R), (B,1,rope)
     _write(cache, torch.cat([c_new, kr_new], dim=-1), t, seq_len)
     k_cat = cache.to(dt)[:, :, None, :]                          # (B,S,1,R+rope)
     # absorb W_uk into q:  q_abs = q_nope @ W_uk  -> latent-space query
-    q_abs = torch.einsum("bqhd,rhd->bqhr", q_nope, p["wk_b"].to(dt))  # (B,1,H,R)
-    q_cat = torch.cat([q_abs, q_rope], dim=-1)                  # (B,1,H,R+rope)
+    q_abs = _per_head("bqhd,rhd->bqhr", q_nope, p["wk_b"], dt, local)  # (B,1,heads,R)
+    q_cat = torch.cat([q_abs, q_rope], dim=-1)                  # (B,1,heads,R+rope)
+    every_head = local and seq_len is not None
+    if every_head:                          # every head attends this rank's positions
+        q_cat = tp.gather_from_model(q_cat, 2)
     out_lat = _decode_attention(q_cat, k_cat, k_cat[..., :R], t, seq_len,
                                 impl or cfg.attn_impl, scale=mla_scale(cfg))
-    out = torch.einsum("bqhr,rhd->bqhd", out_lat, p["wv_b"].to(dt))
-    out = out.reshape(B, 1, H * cfg.v_head_dim)
-    return L.linear(p["wo"], out, dt), cache
+    if every_head:                          # this rank's heads of the merged output
+        out_lat = tp.scatter_to_model(out_lat, 2)
+    out = _per_head("bqhr,rhd->bqhd", out_lat, p["wv_b"], dt, local)
+    return _out(p, cfg, out, wo, dt), cache

@@ -290,20 +290,23 @@ def tp_leaves(cfg: ModelConfig) -> set:
     """The leaves that the tensor-parallel modules read as this rank's
     "model" block (``train/step.py`` gathers them over their other mesh axes
     only, and computes under ``tp.computing_on_blocks``): the embedding and
-    the head without codebooks, and the GQA attention and dense SwiGLU of
-    the stacked segments.  Those modules hold each weight to its spec
+    the head without codebooks, the attention (GQA or MLA) of the stacked
+    segments, the dense SwiGLU of their dense kinds, and the MTP block's
+    attention and SwiGLU.  Those modules hold each weight to its spec
     through ``tp.block_dim`` (``tp.vocab_start``): the whole leaf where the
     rules do not split it over "model", else this rank's block.  Every other
-    module (MoE experts, MLA, the SSM mixers, codebooks, zamba2's shared
-    block, the MTP block) reads its leaves whole."""
+    module (MoE experts, the SSM mixers, codebooks, zamba2's shared block)
+    reads its leaves whole."""
     prefixes = []
     if not cfg.num_codebooks:
         prefixes += ["embed/", "head"]
     for i, seg in enumerate(layer_plan(cfg)):
-        if seg.kind in ("attn_dense", "attn_moe"):
+        if seg.kind in BL.ATTN_KINDS:
             prefixes.append(f"seg{i}/attn/")
-        if seg.kind == "attn_dense":
+        if seg.kind in ("attn_dense", "mla_dense"):
             prefixes.append(f"seg{i}/ffn/")
+    if cfg.mtp_depth:
+        prefixes += ["mtp/block/attn/", "mtp/block/ffn/"]
     return {n for n, _ in flatten_with_names(param_specs(cfg)) if n.startswith(tuple(prefixes))}
 
 

@@ -44,7 +44,8 @@ Only there do the modules read their weights' specs, and ``block_dim`` (or
 rules: the whole leaf, or this rank's block of it.  Serving decides it the
 same way (``serve/engine.py``).  Elsewhere (the card, one rank) they take
 the plain path.  ``COUNTS["block_products"]``
-counts the products that ran on a block (``layers.linear`` and the logits).
+counts the products that ran on a block (``layers.linear``, MLA's per-head
+up-projections and the logits).
 """
 from __future__ import annotations
 

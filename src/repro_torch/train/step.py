@@ -12,10 +12,11 @@ Over a mesh of several ranks (``core.virtualization.place_tree`` lays the
 state out; a leaf the rules split is a ``DTensor``), each rank takes its
 rows of the global batch by the batch's placement.  The leaves of the
 tensor-parallel modules (``models.model.tp_leaves``: the embedding, the
-head, GQA attention and the dense SwiGLU) are gathered over their
-non-"model" axes only, and those modules compute on this rank's "model"
-block of them (``parallel/tp.py``; the step decides this once, where the
-"model" axis has several ranks, and runs under ``tp.computing_on_blocks``),
+head, GQA and MLA attention, the dense SwiGLU and the MTP block's) are
+gathered over their non-"model" axes only, and those modules compute on
+this rank's "model" block of them (``parallel/tp.py``; the step decides
+this once, where the "model" axis has several ranks, and runs under
+``tp.computing_on_blocks``),
 as the reference's GSPMD splits their products; every other leaf is
 gathered whole.  Each gradient is cut to its
 "model" block, summed over the batch ranks and cut to this rank's block
