@@ -285,13 +285,21 @@ ELASTIC_ARCH = "llama3.2-1b"
 ELASTIC_OPT = {"warmup_steps": 2, "decay_steps": 10}
 # the reference's limit on a step-4 loss under another mesh (reductions reassociate)
 ELASTIC_TOL = 5e-4
-# phase 12(d): serving over "model" blocks on the two CPU ranks at (1, 2),
+# phase 12(d): serving on blocks on the two CPU ranks: at (1, 2) over "model",
 # reduced qwen2-0.5b (its cache on kv_heads_dim: 2 kv heads, a head a rank)
 # and reduced deepseek-v3 (MLA's latent on cache_seq: 16 positions a rank;
-# its products on 2 of the 4 heads a rank), B4, prompts of 12, a cache of 32,
-# a snapshot at token 4 and 4 tokens after it
-SERVE_TP_ARCHS = ("qwen2-0.5b", "deepseek-v3-671b")
+# its products on 2 of the 4 heads a rank, its experts' and shared expert's
+# moe_d_ff on half a rank); at (2, 1) over "data", reduced granite-moe (4 of
+# 8 experts a rank, the dispatched slots moved by all-to-alls); B4, prompts of
+# 12, a cache of 32, a snapshot at token 4 and 4 tokens after it
+SERVE_TP_ARCHS = {"qwen2-0.5b": (1, 2), "deepseek-v3-671b": (1, 2),
+                  "granite-moe-3b-a800m": (2, 1)}
 SERVE_TP = {"batch": 4, "prompt": 12, "max_seq": 32, "snap_at": 4, "after": 4}
+# each rank's products on a "model" block over the 9 steps, as the CPU
+# rehearsal of 12(d) counts them: the attention's four a layer a step (MLA's
+# wq_b, wk_b, wv_b, wo; GQA's wq, wk, wv, wo), the dense SwiGLU's three, the
+# MoE layers' three expert and three shared-expert products, the logits'
+SERVE_TP_PRODUCTS = {"qwen2-0.5b": 261, "deepseek-v3-671b": 342, "granite-moe-3b-a800m": 0}
 # the card's continuation against the ranks': phase 4's limit (card and CPU)
 SERVE_TP_LOGIT_TOL = 1e-3
 # deadlines of the child processes, about 3x their wall time on a slow disk
@@ -2361,39 +2369,41 @@ def _serve_tp_setup(arch: str, device: str):
 
 
 def _serve_tp_ranks(work: Path, rank: int) -> dict:
-    """Phase 12(d) on the two ranks at (1, 2): each arch serves on "model"
-    blocks, snapshots at ``snap_at`` (rank 0 saves the whole snapshot) and
-    goes on; the cache blocks' shapes, the tokens after the snapshot and
-    the last logits."""
+    """Phase 12(d) on the two ranks, each arch at its mesh of
+    ``SERVE_TP_ARCHS``: it serves on blocks, snapshots at ``snap_at`` (rank
+    0 saves the whole snapshot) and goes on; the cache blocks' shapes, the
+    tokens after the snapshot, each rank's products on a "model" block and
+    all-to-alls."""
     import torch
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.parallel import tp
+    from repro_torch.parallel import ep, tp
     from repro_torch.parallel.mesh_rules import Rules
     from repro_torch.serve.engine import Engine
     from repro_torch.utils.tree import flatten_with_names
 
-    rules = Rules(make_mesh((1, 2)))
     out = {}
-    for arch in SERVE_TP_ARCHS:
+    for arch, shape in SERVE_TP_ARCHS.items():
+        rules = Rules(make_mesh(shape))
         cfg, model, prompts = _serve_tp_setup(arch, "cpu")
         eng = Engine(cfg, model, batch=SERVE_TP["batch"], max_seq=SERVE_TP["max_seq"],
                      rules=rules)
-        tp.COUNTS["block_products"] = 0
+        tp.COUNTS["block_products"] = ep.COUNTS["all_to_all"] = 0
         eng.prefill(prompts)
         eng.generate(SERVE_TP["snap_at"])
         snap = eng.snapshot()
         tokens = eng.generate(SERVE_TP["after"])
         counts = [None] * dist.get_world_size()
-        dist.all_gather_object(counts, tp.COUNTS["block_products"])
+        dist.all_gather_object(counts, [tp.COUNTS["block_products"], ep.COUNTS["all_to_all"]])
+        logits = eng.whole_rows(eng.last_logits)        # a collective at (2, 1)
         if rank == 0:
-            torch.save({**snap, "logits": eng.whole_rows(eng.last_logits)},
-                       work / f"serve-{arch}.pt")
-        out[arch] = {"tokens": tokens.tolist(), "blocks": sorted(eng.blocks),
+            torch.save({**snap, "logits": logits}, work / f"serve-{arch}.pt")
+        out[arch] = {"mesh": list(shape), "tokens": tokens.tolist(), "blocks": sorted(eng.blocks),
                      "shapes": {n: list(x.shape) for n, x in flatten_with_names(eng.cache)
                                 if n in eng.blocks},
-                     "block_products": counts}
+                     "block_products": [c[0] for c in counts],
+                     "all_to_all": [c[1] for c in counts]}
     return out
 
 
@@ -2402,7 +2412,7 @@ def gloo_child(argv: list) -> int:
     phase 12(c)-(d), joined to the other over gloo (a ``FileStore``): three
     steps of the elastic scenario from seed 3 at mesh (2, 1) and a save;
     then, in each of the meshes (2, 1) and (1, 2) over the same two ranks, a
-    restore of that save and step 4; then 12(d)'s serving at (1, 2).  Rank
+    restore of that save and step 4; then 12(d)'s serving.  Rank
     0 prints the losses and the served tokens as JSON."""
     import datetime
 
@@ -2526,6 +2536,11 @@ def phase_parallel(work: Path, ranks: "_GlooGroup") -> dict:
     from repro_torch.train import step as TS
     from repro_torch.utils.tree import flatten_with_names
 
+    # the CPU ranks of (c)-(d) end before (b)'s profiled windows: their load on
+    # the host's cores can make the profiler drop a window's device events
+    cpu = ranks.wait()
+    ranks_s = time.perf_counter() - ranks.started
+
     # ---- (a) the rules on the card's mesh ---------------------------------
     mesh = make_host_mesh("cuda")
     rules = Rules(mesh)
@@ -2593,8 +2608,6 @@ def phase_parallel(work: Path, ranks: "_GlooGroup") -> dict:
     del sets, q, k, v, plain, got_ring, got_flash, no_mesh
 
     # ---- (c) the elastic scenario across the card ---------------------------
-    cpu = ranks.wait()
-    ranks_s = time.perf_counter() - ranks.started
     base, other = cpu["step4"]["(2, 1)"], cpu["step4"]["(1, 2)"]
     t0 = time.perf_counter()
     state = _elastic_restore(work / "cpu-save", rules, "cuda")
@@ -2636,11 +2649,13 @@ def phase_parallel(work: Path, ranks: "_GlooGroup") -> dict:
 
 
 def _serve_tp_card(work: Path, cpu: dict) -> dict:
-    """Phase 12(d) on the card: each snapshot the (1, 2) ranks took (their
+    """Phase 12(d) on the card: each snapshot the ranks took (at (1, 2) their
     cache blocks on "model": a kv head a rank for qwen2, 16 positions a rank
-    for deepseek-v3's latent) restored at (1, 1) and continued: the ranks'
-    tokens, the last logits within SERVE_TP_LOGIT_TOL of the largest
-    |logit|, every decode step through flash_decode."""
+    for deepseek-v3's latent; at (2, 1) granite-moe's rows) restored at
+    (1, 1) and continued: the ranks' tokens, the last logits within
+    SERVE_TP_LOGIT_TOL of the largest |logit|, every decode step through
+    flash_decode; the ranks' products on blocks as the CPU rehearsal counts
+    them, and all-to-alls exactly where the experts split."""
     import torch
 
     from repro_torch.kernels import decode_attention
@@ -2659,12 +2674,11 @@ def _serve_tp_card(work: Path, cpu: dict) -> dict:
         err = float((eng.last_logits.float() - want).abs().max())
         scale = float(want.abs().max())
         same = tokens.tolist() == ranks["tokens"]
-        # the attention's four products a layer a step at least (MLA's wq_b, wk_b,
-        # wv_b and wo on a rank's 2 of 4 heads; GQA's wq, wk, wv and wo)
-        least = 4 * cfg.num_layers * (1 + SERVE_TP["snap_at"] + SERVE_TP["after"])
+        want_products = SERVE_TP_PRODUCTS[arch]
         log(f"  (d) {arch} reduced, B{SERVE_TP['batch']} cache {SERVE_TP['max_seq']}: two CPU "
-            f"ranks at (1, 2) serve on \"model\" blocks (products on a block, rank 0 / 1: "
-            f"{ranks['block_products']}, at least {least}; cache blocks {ranks['shapes']}) and "
+            f"ranks at {tuple(ranks['mesh'])} serve on blocks (products on a \"model\" block, "
+            f"rank 0 / 1: {ranks['block_products']}, the rehearsal's {want_products}; "
+            f"all-to-alls {ranks['all_to_all']}; cache blocks {ranks['shapes']}) and "
             f"snapshot at token {SERVE_TP['snap_at']}; the card restores the whole snapshot at "
             f"(1, 1): its {SERVE_TP['after']} tokens equal the ranks': {same}; last logits "
             f"max_abs_err {err:.3g} (tol {SERVE_TP_LOGIT_TOL} of {scale:.3g}); flash_decode "
@@ -2674,11 +2688,17 @@ def _serve_tp_card(work: Path, cpu: dict) -> dict:
                                  f"{tokens.tolist()} / {ranks['tokens']}, logits {err}")
         if launched != SERVE_TP["after"] * cfg.num_layers:
             raise AssertionError(f"{arch}: flash_decode launched {launched} times")
-        if min(ranks["block_products"]) < least:
-            raise AssertionError(f"{arch}: the (1, 2) ranks computed {ranks['block_products']} "
-                                 f"products on \"model\" blocks, fewer than {least}")
+        if ranks["block_products"] != [want_products] * 2:
+            raise AssertionError(f"{arch}: the ranks computed {ranks['block_products']} "
+                                 f"products on \"model\" blocks, not {want_products}")
+        # granite-moe's 8 experts split over the two "data" ranks, nobody else's
+        experts_split = ranks["mesh"][0] > 1 and bool(cfg.num_experts)
+        if (min(ranks["all_to_all"]) > 0) != experts_split or \
+                (not experts_split and max(ranks["all_to_all"])):
+            raise AssertionError(f"{arch}: the ranks ran {ranks['all_to_all']} all-to-alls")
         out[arch] = {"tokens_equal": same, "logit_err": err, "flash_decode": launched,
-                     "block_products": ranks["block_products"]}
+                     "block_products": ranks["block_products"],
+                     "all_to_all": ranks["all_to_all"]}
     return out
 
 # ----------------------------------------------------------------------------------
@@ -3115,7 +3135,13 @@ def main() -> int:
                         "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
                         "bound_by": first["bound_by"],
                         "library_ms": first["library_ms"] and first["library_ms"]["median"]})
-    log(f"all phases passed in {time.perf_counter() - T0:.1f}s")
+    # the card's (1, 1) mesh splits no expert: every MoE run above took the plain path
+    from repro_torch.parallel import ep
+
+    if ep.COUNTS["all_to_all"]:
+        raise AssertionError(f"the card ran {ep.COUNTS['all_to_all']} all-to-alls")
+    log(f"all phases passed in {time.perf_counter() - T0:.1f}s; all-to-alls on the card: "
+        f"{ep.COUNTS['all_to_all']}")
     # every timed shape with its launches on the main paths (ms and library_ms:
     # device time, median/min/max of 5; call_ms: back-to-back calls by events;
     # backward_ms, at the train shapes: the plain recompute by events)

@@ -21,6 +21,8 @@ import contextlib
 import functools
 from contextvars import ContextVar
 
+import torch
+
 _RECORDER = ContextVar("repro_torch_cost_recorder", default=None)
 
 
@@ -46,6 +48,40 @@ def section(name: str):
         return
     with rec.section(name):
         yield
+
+
+class _Bound(torch.autograd.Function):
+    """Identity on ``xs``; in the backward, the recorder's section ``name``
+    opens (at the output's bound, ``opens``) or closes (at the inputs')."""
+
+    @staticmethod
+    def forward(ctx, rec, name, opens, *xs):
+        ctx.rec, ctx.name, ctx.opens = rec, name, opens
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        if ctx.opens:
+            ctx.rec.open_section(ctx.name)
+        else:
+            ctx.rec.close_section()
+        return (None, None, None) + gs
+
+
+def in_section(name: str, fn, *xs):
+    """``fn(*xs)`` (tensors in, one tensor out) as section ``name``'s, for an
+    active recorder that keeps sections: its forward inside ``section``, and
+    its backward too, between two identity bounds whose backward opens and
+    closes the section.  Autograd runs the nodes of one thread in the
+    reverse order of their creation, so the ops between the bounds'
+    backwards are those of ``fn``'s.  Without such a recorder, ``fn(*xs)``."""
+    rec = _RECORDER.get()
+    if rec is None or not hasattr(rec, "section"):
+        return fn(*xs)
+    xs = _Bound.apply(rec, name, False, *xs)
+    with rec.section(name):
+        out = fn(*xs)
+    return _Bound.apply(rec, name, True, out)[0]
 
 
 def charged(name: str, cost):

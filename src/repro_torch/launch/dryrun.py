@@ -10,8 +10,9 @@ under ``launch/hlo_costs.py``'s walk.  The group is destroyed when the cell
 ends.
 
 The step is the port's own: ``train/step.py``'s train step (the batch's
-rows per rank, the tensor-parallel modules on this rank's "model" blocks and
-every other leaf gathered whole, gradients reduce-scattered over the batch
+rows per rank, the tensor-parallel modules on this rank's "model" blocks,
+the MoE experts on their expert blocks moved to by all-to-alls, every other
+leaf gathered whole, gradients reduce-scattered over the batch
 ranks, the plain recompute as the kernels' backward), or, for serving,
 ``serve/engine.py``'s ``prefill_step`` / ``decode_step`` on this rank's rows,
 on the parameters the engine computes on (``serving_params``: the same
@@ -100,7 +101,7 @@ def build_step(cfg, shape, rules, *, impl=None, microbatches=None, moment_dtype=
 
     def decode_step(params, cache, tokens):
         return E.decode_step(cfg, rules, serving(params), tokens, cache, shape.seq_len,
-                             impl=impl)
+                             shape.global_batch, impl=impl)
 
     tokens = cut_tree({"t": tokens}, {"t": ("batch",) + (None,) * (tokens.ndim - 1)},
                       rules)["t"]

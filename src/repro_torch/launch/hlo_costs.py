@@ -138,6 +138,7 @@ class Walk(TorchDispatchMode):
         self._rows: dict = {}
         self._inside = 0                  # depth of kernel wrapper calls
         self._section = None              # the ``costs.section`` the ops run in
+        self._outer: list = []            # the sections it opened in
         self._refs: dict = {}             # storage key -> weak reference
         self._live = 0
         self.peak = 0
@@ -182,11 +183,18 @@ class Walk(TorchDispatchMode):
 
     @contextlib.contextmanager
     def section(self, name: str):
-        outer, self._section = self._section, name
+        self.open_section(name)
         try:
             yield
         finally:
-            self._section = outer
+            self.close_section()
+
+    def open_section(self, name: str) -> None:
+        self._outer.append(self._section)
+        self._section = name
+
+    def close_section(self) -> None:
+        self._section = self._outer.pop()
 
     # -- the dispatch mode -----------------------------------------------------------
     def _row(self, key) -> None:
@@ -270,11 +278,13 @@ def _op_bytes(row: dict) -> int:
 def costs_from_table(table: list[dict]) -> dict:
     """The reference's keys (``hlo_costs.py:analyze_hlo_text``) from a per-op
     table, plus the kernels' calls, FLOPs and bytes, the collectives'
-    counts by kind, and the collectives' bytes by ``costs.section`` (the
-    train step's gradient reduction is "grads")."""
+    counts by kind, and the collectives' bytes and the FLOPs by
+    ``costs.section`` (the train step's gradient reduction is "grads", the
+    MoE layers' routed experts, forward and backward, "experts")."""
     totals = {"flops": 0.0, "bytes": 0.0, "unknown_while": 0}
     coll = defaultdict(float)
     sections = defaultdict(float)
+    section_flops = defaultdict(float)
     coll_n = defaultdict(int)
     kernels = defaultdict(lambda: {"calls": 0, "flops": 0.0, "bytes": 0.0})
     coll_rows, byte_rows = [], []
@@ -282,6 +292,8 @@ def costs_from_table(table: list[dict]) -> dict:
         n = row["n"]
         b = _op_bytes(row) * n
         totals["flops"] += row["flops"] * n
+        if row.get("section") and row["flops"]:
+            section_flops[row["section"]] += row["flops"] * n
         totals["bytes"] += b
         if row["kind"] == "kernel":
             k = kernels[row["op"]]
@@ -303,6 +315,7 @@ def costs_from_table(table: list[dict]) -> dict:
     totals["collective_bytes"] = float(sum(coll.values()))
     totals["collective_bytes_native"] = totals["collective_bytes"]
     totals["section_collective_bytes"] = dict(sections)
+    totals["section_flops"] = dict(section_flops)
     coll_rows.sort(key=lambda r: -r[0])
     totals["top_collectives"] = [f"{b:.3e}B {d}" for b, d in coll_rows[:10]]
     byte_rows.sort(key=lambda r: -r[0])

@@ -101,10 +101,12 @@ def _index(tree, i: int):
     return tree_map(lambda x: x[i], tree)
 
 
-def _ffn(kind, p, cfg: ModelConfig, xn, moe_groups: int, dt, batch_group=None):
-    """The block's FFN: (out, the MoE aux loss or None)."""
+def _ffn(kind, p, cfg: ModelConfig, xn, moe_groups: int, dt, batch_group=None,
+         row_axes=None):
+    """The block's FFN: (out, the MoE aux loss or None); ``row_axes``: see
+    ``moe.moe_ffn``."""
     if kind.endswith("moe"):
-        return MOE.moe_ffn(p, cfg, xn, moe_groups, batch_group)
+        return MOE.moe_ffn(p, cfg, xn, moe_groups, batch_group, row_axes)
     spec = L.swiglu_spec(cfg.d_model, cfg.d_ff) if tp.on_blocks() else None
     return L.swiglu(p, xn, dt, spec), None
 
@@ -167,9 +169,11 @@ def block_full(kind, p, cfg: ModelConfig, h, positions, *, moe_groups=16,
 
 
 def block_decode(kind, p, cfg: ModelConfig, h, cache, t, *, emb0=None, shared_p=None,
-                 impl=None, seq_len=None):
+                 impl=None, seq_len=None, row_axes=()):
     """Returns (h, cache); the cache entry (views into the model's cache) is
-    updated in place.  A MoE FFN routes the B tokens as one group.
+    updated in place.  A MoE FFN routes the B tokens of the whole batch as
+    one group, as the reference's; ``row_axes``: the mesh axes that split
+    them, () where ``h`` holds all of them (``moe.moe_ffn``).
     ``seq_len``: the whole cache's length where an attention kind's entry is
     this rank's block of positions (``attention.gqa_decode``)."""
     dt = L.torch_dtype(cfg.compute_dtype)
@@ -185,7 +189,7 @@ def block_decode(kind, p, cfg: ModelConfig, h, cache, t, *, emb0=None, shared_p=
             cache = {"k": k, "v": v}
         h = h + attn_out
         xn = L.rms_norm(p["ln2"], h, cfg.norm_eps)
-        ffn_out, _ = _ffn(kind, p["ffn"], cfg, xn, 1, dt)
+        ffn_out, _ = _ffn(kind, p["ffn"], cfg, xn, 1, dt, row_axes=row_axes)
         return h + ffn_out, cache
 
     if kind == "mamba2":

@@ -291,23 +291,31 @@ def tp_leaves(cfg: ModelConfig) -> set:
     "model" block (``train/step.py`` gathers them over their other mesh axes
     only, and computes under ``tp.computing_on_blocks``): the embedding and
     the head without codebooks, the attention (GQA or MLA) of the stacked
-    segments, the dense SwiGLU of their dense kinds, and the MTP block's
-    attention and SwiGLU.  Those modules hold each weight to its spec
-    through ``tp.block_dim`` (``tp.vocab_start``): the whole leaf where the
-    rules do not split it over "model", else this rank's block.  Every other
-    module (MoE experts, the SSM mixers, codebooks, zamba2's shared block)
-    reads its leaves whole."""
+    segments, their FFNs (the dense SwiGLU, or the MoE layer: its experts'
+    ``moe_d_ff``, DeepSeek's shared expert; the router has no "model" dim),
+    and the MTP block's attention and SwiGLU.  Those modules hold each
+    weight to its spec through ``tp.block_dim`` (``tp.vocab_start``,
+    ``ep.expert_block``): the whole leaf where the rules do not split it
+    over "model", else this rank's block.  The experts of ``ep_leaves`` are
+    also this rank's block over their expert axes.  Every other module (the
+    SSM mixers, codebooks, zamba2's shared block) reads its leaves whole."""
     prefixes = []
     if not cfg.num_codebooks:
         prefixes += ["embed/", "head"]
     for i, seg in enumerate(layer_plan(cfg)):
         if seg.kind in BL.ATTN_KINDS:
-            prefixes.append(f"seg{i}/attn/")
-        if seg.kind in ("attn_dense", "mla_dense"):
-            prefixes.append(f"seg{i}/ffn/")
+            prefixes += [f"seg{i}/attn/", f"seg{i}/ffn/"]
     if cfg.mtp_depth:
         prefixes += ["mtp/block/attn/", "mtp/block/ffn/"]
     return {n for n, _ in flatten_with_names(param_specs(cfg)) if n.startswith(tuple(prefixes))}
+
+
+def ep_leaves(cfg: ModelConfig) -> set:
+    """The experts' leaves of the MoE segments (``wi_gate``, ``wi_up``,
+    ``wo``), which the MoE layer reads as this rank's block over the axes
+    the rules give "expert" (``parallel/ep.py``) as well as over "model"."""
+    return {f"seg{i}/ffn/{k}" for i, seg in enumerate(layer_plan(cfg))
+            if seg.kind.endswith("moe") for k in ("wi_gate", "wi_up", "wo")}
 
 
 # ----------------------------------------------------------------------------------
@@ -506,7 +514,9 @@ def serving_blocks(cfg: ModelConfig) -> set:
     on "model"): each attention segment's ``k`` and ``v`` (GQA) or ``ckv``
     (MLA), whose modules compute on blocks.  Every other leaf (``t``,
     zamba2's shared block's cache and every SSM state, whose mixers compute
-    whole) is whole over "model"; a rank holds its rows of it."""
+    whole) is whole over "model"; a rank holds its rows of it.  The MoE
+    layers keep no cache: their experts compute on blocks (``tp_leaves``,
+    ``ep_leaves``) on every rank's rows, routed as one group."""
     out = set()
     for i, seg in enumerate(layer_plan(cfg)):
         if seg.kind in BL.ATTN_KINDS:
@@ -560,9 +570,11 @@ def _whole_logits(params, cfg: ModelConfig, h):
 
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, tokens_new: torch.Tensor, cache: dict, *,
-                impl=None, max_seq=None):
+                impl=None, max_seq=None, row_axes=()):
     """tokens_new: (B,) or (B,K) int.  Returns (fp32 logits (B,V) or (B,K,V),
-    new cache).
+    new cache).  ``row_axes``: the mesh axes of the ambient rules that split
+    the whole batch's rows, of which these are this rank's (() where they
+    are all of them): a MoE layer routes the whole batch as one group.
 
     The new cache holds the SAME tensors as ``cache``, updated in place (the
     attention caches at position ``cache["t"]``, the recurrent states by
@@ -581,7 +593,7 @@ def decode_step(params, cfg: ModelConfig, tokens_new: torch.Tensor, cache: dict,
         for j, p in enumerate(_layers(params, i, seg.count)):
             h, _ = BL.block_decode(seg.kind, p, cfg, h, tree_map(lambda x, j=j: x[j], seg_c),
                                    t, emb0=emb0, shared_p=shared_p, impl=impl,
-                                   seq_len=seq_lens.get(i))
+                                   seq_len=seq_lens.get(i), row_axes=row_axes)
         new_cache[f"seg{i}"] = seg_c
     h = L.rms_norm(tree["final_norm"], h, cfg.norm_eps)
     logits = _whole_logits(tree, cfg, h)[:, 0]

@@ -26,9 +26,12 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import costs
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamSpec
+from repro_torch.parallel import ep, tp
 from repro_torch.parallel.collectives import group_sum
+from repro_torch.parallel.context import current_rules
 
 
 def moe_spec(cfg: ModelConfig) -> dict:
@@ -44,18 +47,34 @@ def moe_spec(cfg: ModelConfig) -> dict:
     return s
 
 
+def splits_experts(cfg: ModelConfig, rules) -> bool:
+    """The rules split the MoE experts over several ranks (``ep.expert_axes``
+    of the experts' leaves is not empty)."""
+    return cfg.num_experts > 0 and bool(
+        ep.expert_axes(rules, moe_spec(cfg)["wi_gate"]))
+
+
+def check_rows(cfg: ModelConfig, rules, batch_axes) -> None:
+    """Raise where the experts split over mesh axes that do not split the
+    batch's rows: the ranks of an all-to-all must each hold rows of their
+    own (``parallel/ep.py``)."""
+    ex = ep.expert_axes(rules, moe_spec(cfg)["wi_gate"])
+    if not set(ex) <= set(batch_axes):
+        raise ValueError(f"the experts split over {ex}, but the batch's rows over "
+                         f"{tuple(batch_axes)}: every rank of the experts' all-to-all "
+                         "must hold rows of its own")
+
+
 class _QuantTransport(torch.autograd.Function):
     """int8 round trip of the dispatched tokens (per-slot absmax scale in the
-    compute dtype), as the reference's int8 dispatch all-to-all; on one
-    device there is no all-to-all, so only the rounding remains.  The
-    gradient passes straight through."""
+    compute dtype), as the reference's int8 dispatch all-to-all; where the
+    experts do not split over ranks there is no all-to-all
+    (``parallel/ep.py``), so only the rounding remains.  The gradient
+    passes straight through."""
 
     @staticmethod
     def forward(ctx, x):
-        x32 = x.float()
-        amax = torch.amax(torch.abs(x32), dim=-1, keepdim=True)
-        scale = (torch.clamp(amax, min=1e-6) / 127.0).to(x.dtype)
-        q = torch.clamp(torch.round(x32 / scale.float()), -127, 127).to(torch.int8)
+        q, scale = ep.quantize(x)
         return q.to(x.dtype) * scale
 
     @staticmethod
@@ -146,7 +165,10 @@ def dispatch(xg: torch.Tensor, slot_tok: torch.Tensor, slot_filled: torch.Tensor
 
 
 def expert_ffn(p, xe: torch.Tensor, dt) -> torch.Tensor:
-    """Each expert's SwiGLU over its C slots: (G,E,C,D) -> (G,E,C,D)."""
+    """Each expert's SwiGLU over its C slots: (G,E,C,D) -> (G,E,C,D).  On
+    this rank's "model" block of ``moe_d_ff`` (gate and up column-parallel,
+    wo row-parallel) the output is this rank's share of the sum over
+    "model"."""
     x = xe.to(dt)
     g = torch.einsum("gecd,edf->gecf", x, p["wi_gate"].to(dt))
     u = torch.einsum("gecd,edf->gecf", x, p["wi_up"].to(dt))
@@ -168,9 +190,44 @@ def combine(ye: torch.Tensor, flat_e: torch.Tensor, slot: torch.Tensor,
     return torch.sum(contrib.reshape(Gn, TK // K, K, D), dim=2)
 
 
-def moe_ffn(p, cfg: ModelConfig, x: torch.Tensor, moe_groups: int, batch_group=None):
+def _blocks(p, cfg: ModelConfig):
+    """(whether the expert weights in ``p`` are this rank's experts only,
+    whether they are its "model" block of ``moe_d_ff``): both False off
+    ``tp.on_blocks`` or for whole weights (``ep.expert_block`` holds each
+    to its spec)."""
+    if not tp.on_blocks():
+        return False, False
+    spec = moe_spec(cfg)
+    got = {ep.expert_block(p[k], spec[k]) for k in ("wi_gate", "wi_up", "wo")}
+    if len(got) != 1:
+        raise ValueError(f"the expert weights are blocks of different kinds: {sorted(got)}")
+    return got.pop()
+
+
+def _shared(p, cfg: ModelConfig, xg: torch.Tensor, dt) -> torch.Tensor:
+    """DeepSeek's shared expert: a SwiGLU on "model" blocks where the step
+    computes on them (``blocks._ffn``'s rule)."""
+    spec = L.swiglu_spec(cfg.d_model, cfg.moe_d_ff * cfg.num_shared_experts) \
+        if tp.on_blocks() else None
+    return L.swiglu(p["shared"], xg, dt, spec)
+
+
+def moe_ffn(p, cfg: ModelConfig, x: torch.Tensor, moe_groups: int, batch_group=None,
+            row_axes=None):
     """x: (B,S,D) -> (out, aux_loss).  Token order is preserved.
-    ``batch_group``: see ``route``."""
+    ``batch_group``: see ``route``.
+
+    Where the step computes on blocks (``tp.on_blocks``) and ``p`` holds this
+    rank's experts (``parallel/ep.py``), the dispatched slots move to their
+    experts' ranks and back by all-to-alls; where it holds their "model"
+    block of ``moe_d_ff``, the experts run on it and the combined output is
+    summed over "model".  Routing stays on this rank's groups.
+
+    ``row_axes`` (decode, where the B rows are one routing group): the mesh
+    axes that split the batch's rows, () where this rank holds all of them;
+    see ``_decode_one_group``."""
+    if row_axes is not None and (row_axes or any(_blocks(p, cfg))):
+        return _decode_one_group(p, cfg, x, tuple(row_axes)), None
     dt = L.torch_dtype(cfg.compute_dtype)
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.num_experts_per_tok
@@ -183,9 +240,86 @@ def moe_ffn(p, cfg: ModelConfig, x: torch.Tensor, moe_groups: int, batch_group=N
     top_p, top_e, aux = route(p["router"], cfg, xg, batch_group)
     flat_e = top_e.reshape(G, Tg * K)
     slot, valid, slot_tok, slot_filled = assign_slots(flat_e, E, C, K)
-    xe = dispatch(xg, slot_tok, slot_filled, E, C, cfg.moe_dispatch_bits == 8)
-    ye = expert_ffn(p, xe, dt)
-    out = combine(ye, flat_e, slot, valid, top_p, C, dt)
+    on_experts, on_model = _blocks(p, cfg)
+    quant = cfg.moe_dispatch_bits == 8
+    spec = moe_spec(cfg)["wi_gate"]
+
+    def routed(xg, top_p):
+        if on_model:       # the slots' gradient, and the weights', summed over "model"
+            xg, top_p = tp.copy_to_model(xg), tp.copy_to_model(top_p)
+            tp.COUNTS["block_products"] += 3
+        xe = dispatch(xg, slot_tok, slot_filled, E, C, quant and not on_experts)
+        if on_experts:
+            xe = ep.to_experts(xe, spec, quant)
+        ye = expert_ffn(p, xe, dt)
+        if on_experts:
+            ye = ep.from_experts(ye, spec)
+        out = combine(ye, flat_e, slot, valid, top_p, C, dt)
+        return tp.reduce_from_model(out) if on_model else out
+
+    out = costs.in_section("experts", routed, xg, top_p)
     if cfg.num_shared_experts:
-        out = out + L.swiglu(p["shared"], xg, dt)
+        out = out + _shared(p, cfg, xg, dt)
     return out.reshape(B, S, D), aux
+
+
+def _reduce_scatter_rows(part: torch.Tensor, group) -> torch.Tensor:
+    """(B,D) partials summed over ``group``, rank r keeping rows block r."""
+    out = part.new_empty((part.shape[0] // dist.get_world_size(group),) + part.shape[1:])
+    dist.reduce_scatter_tensor(out, part.contiguous(), group=group)
+    return out
+
+
+def _decode_one_group(p, cfg: ModelConfig, x: torch.Tensor, row_axes: tuple) -> torch.Tensor:
+    """A decode step's MoE FFN over ranks, as the reference routes it: the B
+    rows of the whole batch as one group (its capacity from all B tokens).
+    ``x`` (B/R,1,D) is this rank's rows, split over the mesh axes
+    ``row_axes`` (R ranks; () where it holds all of them).  The rows'
+    input is gathered over ``rows``, all B are routed alike on every rank,
+    this rank computes the slots of its experts (all, or its block over the
+    expert axes) on its block of ``moe_d_ff``, and forms each row's partial
+    combine over them; the partials are summed over the expert axes and cut
+    to this rank's rows (one reduce-scatter where the expert axes are the
+    rows' axes), then summed over "model".  The shared expert runs on this
+    rank's rows.  Returns (B/R,1,D); no grad (decode)."""
+    dt = L.torch_dtype(cfg.compute_dtype)
+    Bl, _, D = x.shape
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    rules = current_rules()
+    rows = rules.mesh.group(row_axes) if row_axes else None
+    xg = x.reshape(1, Bl, D)
+    xa = xg if rows is None else tp._all_gather(xg, 1, rows)
+    B = xa.shape[1]
+    C = capacity(B, cfg)
+    top_p, top_e, _ = route(p["router"], cfg, xa)
+    flat_e = top_e.reshape(1, B * K)
+    slot, valid, slot_tok, slot_filled = assign_slots(flat_e, E, C, K)
+    on_experts, on_model = _blocks(p, cfg)
+    spec = moe_spec(cfg)["wi_gate"]
+    El = p["wi_gate"].shape[0]
+    e0 = ep.expert_rank_size(spec)[0] * El if on_experts else 0
+
+    def routed(xa, top_p):
+        mine = slice(e0 * C, (e0 + El) * C)
+        xe = dispatch(xa, slot_tok[:, mine], slot_filled[:, mine], El, C,
+                      cfg.moe_dispatch_bits == 8)
+        ye = expert_ffn(p, xe, dt)
+        tp.COUNTS["block_products"] += 3 if on_model else 0
+        here = (flat_e >= e0) & (flat_e < e0 + El)
+        local_e = torch.where(here, flat_e - e0, torch.zeros_like(flat_e))
+        part = combine(ye, local_e, slot, valid & here, top_p, C, dt)[0]    # (B,D)
+        ex_axes = ep.expert_axes(rules, spec) if on_experts else ()
+        if ex_axes:
+            group = ep.expert_group(spec)
+            if ex_axes == row_axes:
+                part = _reduce_scatter_rows(part, group)
+                return tp.reduce_from_model(part) if on_model else part
+            dist.all_reduce(part, group=group)
+        if rows is not None:
+            part = part.chunk(dist.get_world_size(rows))[dist.get_rank(rows)]
+        return tp.reduce_from_model(part) if on_model else part
+
+    out = costs.in_section("experts", routed, xa, top_p)[:, None]
+    if cfg.num_shared_experts:
+        out = out + _shared(p, cfg, xg, dt).reshape(Bl, 1, D)
+    return out

@@ -38,14 +38,15 @@ card's (1, 1) mesh) every operation is the identity, or the plain form.
 
 Whether the modules compute on blocks is decided once a step: the train
 step enters ``computing_on_blocks`` where the "model" axis has several
-ranks and it gathered the leaves of ``models.model.tp_leaves`` as blocks.
+ranks (or the rules split the MoE experts over several, ``parallel/ep.py``)
+and it gathered the leaves of ``models.model.tp_leaves`` as blocks.
 Only there do the modules read their weights' specs, and ``block_dim`` (or
 ``vocab_start``, the same rule) holds each weight to its spec under the
 rules: the whole leaf, or this rank's block of it.  Serving decides it the
 same way (``serve/engine.py``).  Elsewhere (the card, one rank) they take
 the plain path.  ``COUNTS["block_products"]``
 counts the products that ran on a block (``layers.linear``, MLA's per-head
-up-projections and the logits).
+up-projections, the experts' and the logits).
 """
 from __future__ import annotations
 

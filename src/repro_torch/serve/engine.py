@@ -12,13 +12,16 @@ layers route with the batch axis's shard count as their group count (1 on
 one card).
 
 Over a mesh of several ranks each rank serves its rows of the batch (the
-rules' "batch" placement), and where the "model" axis has several ranks the
-modules compute on this rank's "model" blocks (``tp.computing_on_blocks``),
-as the train step does: each leaf of ``models.model.tp_leaves`` is this
-rank's "model" block of it, gathered over the other axes only, and every
-other leaf whole (``serving_params``).  The cache is then the rules' blocks
-from prefill on (``models.model.serving_blocks``: the attention caches on
-``kv_heads_dim`` or ``cache_seq``; every other leaf rows only).  A snapshot
+rules' "batch" placement), and where the "model" axis has several ranks, or
+the rules split the MoE experts over several, the modules compute on this
+rank's blocks (``tp.computing_on_blocks``), as the train step does: each
+leaf of ``models.model.tp_leaves`` is this rank's "model" block of it (the
+experts also their block over their expert axes), and every other leaf
+whole (``serving_params``).  Decode routes the whole batch as one group,
+as the reference's does (``moe.moe_ffn``'s ``row_axes``).  The cache is
+then the rules' blocks from prefill on (``models.model.serving_blocks``:
+the attention caches on ``kv_heads_dim`` or ``cache_seq``; every other
+leaf rows only).  A snapshot
 holds the whole cache (``core.virtualization.whole_tree``), with the
 one-rank engine's paths, shapes and dtypes, and ``restore`` cuts it to this
 engine's blocks, so a snapshot taken on one mesh restores on any other.
@@ -39,7 +42,8 @@ from repro_torch.core.virtualization import (cut_over, cut_tree, full_tensor, ga
                                              whole_tree)
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import model as M
-from repro_torch.parallel import tp
+from repro_torch.models import moe as MOE
+from repro_torch.parallel import ep, tp
 from repro_torch.parallel.context import use_mesh_context
 from repro_torch.parallel.mesh_rules import Rules, batch_logical_axes, named_axes
 from repro_torch.serve.weight_sync import ParamHandle
@@ -52,9 +56,12 @@ def _device_of(params) -> torch.device:
 
 
 def computes_on_blocks(cfg: ModelConfig, rules: Rules, impl: Optional[str] = None) -> bool:
-    """Serving computes on "model" blocks: the "model" axis has several
-    ranks and does not carry the ring's sequence (``impl="ring"``)."""
-    return (impl or cfg.attn_impl) != "ring" and rules.axis_sizes.get("model", 1) > 1
+    """Serving computes on blocks: the "model" axis has several ranks, or
+    the rules split the MoE experts over several
+    (``moe.splits_experts``), and "model" does not carry the ring's
+    sequence (``impl="ring"``)."""
+    return (impl or cfg.attn_impl) != "ring" and (rules.axis_sizes.get("model", 1) > 1
+                                                  or MOE.splits_experts(cfg, rules))
 
 
 def _context(cfg, rules, impl):
@@ -74,16 +81,17 @@ def serving_params(cfg: ModelConfig, params, rules: Rules, impl: Optional[str] =
         if not any(hasattr(x, "full_tensor") for _, x in named):
             return params
         return tree_map(full_tensor, tree)
-    blocks = M.tp_leaves(cfg)
-    others = [a for a in rules.mesh.axis_names if a != "model"]
+    blocks, experts = M.tp_leaves(cfg), M.ep_leaves(cfg)
     axes = dict(named_axes(M.param_logical_axes(cfg)))
+    specs = dict(flatten_with_names(M.param_specs(cfg)))
 
     def leaf(n, x):
         if n not in blocks:
             return full_tensor(x)
+        own = ("model",) + (ep.expert_axes(rules, specs[n]) if n in experts else ())
         if hasattr(x, "redistribute"):
-            return gather_over(x, others)
-        return cut_over(rules, x, axes[n], ("model",)).contiguous()
+            return gather_over(x, [a for a in rules.mesh.axis_names if a not in own])
+        return cut_over(rules, x, axes[n], own).contiguous()
 
     return unflatten_like(tree, {n: leaf(n, x) for n, x in named})
 
@@ -105,18 +113,30 @@ def prefill_step(cfg: ModelConfig, rules: Rules, params, batch: dict, max_seq: i
     share of them over its rows."""
     rows = batch_rows(rules, batch)
     shards = batch["tokens"].shape[0] // max(rows["tokens"].shape[0], 1)
+    if cfg.num_experts and computes_on_blocks(cfg, rules, impl):
+        tokens = batch["tokens"]
+        MOE.check_rows(cfg, rules, rules.dim_axes(batch_logical_axes(batch)["tokens"],
+                                                  tuple(tokens.shape))[0])
     with use_mesh_context(rules.mesh, rules), _context(cfg, rules, impl):
         return M.prefill(params, cfg, rows, max_seq, impl=impl,
                          moe_groups=max(1, rules.axis_group_size("batch") // shards))
 
 
-def decode_step(cfg: ModelConfig, rules: Rules, params, tokens, cache: dict, max_seq: int, *,
-                impl: Optional[str] = None):
+def _row_axes(rules: Rules, batch: int) -> tuple:
+    """The mesh axes that split the rows of a batch of ``batch``."""
+    return tuple(rules.dim_axes(("batch",), (batch,))[0])
+
+
+def decode_step(cfg: ModelConfig, rules: Rules, params, tokens, cache: dict, max_seq: int,
+                batch: int, *, impl: Optional[str] = None):
     """One decode step of this rank's rows (``tokens``, ``cache``: its
-    blocks of a cache of ``max_seq`` positions): (their logits, whole over
-    the vocabulary, the cache, updated in place)."""
+    blocks of a cache of ``max_seq`` positions) of a batch of ``batch``
+    rows: (their logits, whole over the vocabulary, the cache, updated in
+    place).  MoE layers route the whole batch as one group, as the
+    reference's decode does."""
     with use_mesh_context(rules.mesh, rules), _context(cfg, rules, impl):
-        return M.decode_step(params, cfg, tokens, cache, impl=impl, max_seq=max_seq)
+        return M.decode_step(params, cfg, tokens, cache, impl=impl, max_seq=max_seq,
+                             row_axes=_row_axes(rules, batch))
 
 
 class Engine:
@@ -216,7 +236,8 @@ class Engine:
         out = []
         for _ in range(n):
             logits, self.cache = decode_step(self.cfg, self.rules, params, self.last_tokens,
-                                             self.cache, self.max_seq, impl=self.impl)
+                                             self.cache, self.max_seq, self.batch,
+                                             impl=self.impl)
             self.last_logits = logits
             self.last_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
             out.append(self.whole_rows(self.last_tokens).cpu().numpy())

@@ -12,16 +12,19 @@ Over a mesh of several ranks (``core.virtualization.place_tree`` lays the
 state out; a leaf the rules split is a ``DTensor``), each rank takes its
 rows of the global batch by the batch's placement.  The leaves of the
 tensor-parallel modules (``models.model.tp_leaves``: the embedding, the
-head, GQA and MLA attention, the dense SwiGLU and the MTP block's) are
-gathered over their non-"model" axes only, and those modules compute on
-this rank's "model" block of them (``parallel/tp.py``; the step decides
-this once, where the "model" axis has several ranks, and runs under
-``tp.computing_on_blocks``),
-as the reference's GSPMD splits their products; every other leaf is
-gathered whole.  Each gradient is cut to its
-"model" block, summed over the batch ranks and cut to this rank's block
-(one reduce-scatter where the leaf's other split lies along the batch
-ranks' axes); AdamW then updates each rank's own blocks of the params and
+head, GQA and MLA attention, the dense SwiGLU, the MoE layers and the MTP
+block's) are gathered over their non-"model" axes only, the MoE experts
+(``models.model.ep_leaves``) over the axes other than "model" and their
+expert axes, and those modules compute on this rank's blocks of them
+(``parallel/tp.py``, ``parallel/ep.py``; the step decides this once, where
+the "model" axis has several ranks or the rules split the experts over
+several, and runs under ``tp.computing_on_blocks``), as the reference's
+GSPMD splits their products; every other leaf is gathered whole.  Each
+gradient is cut to its "model" block, summed over the batch ranks (an
+expert block's over those outside its expert axes only: the all-to-all
+brought it every token of its group of ranks) and cut to this rank's
+block (one reduce-scatter where the leaf's other split lies along the
+batch ranks' axes); AdamW then updates each rank's own blocks of the params and
 moments, clipped by the norm of the whole gradient (each block's square
 sum counted once, summed over the mesh).  With ``impl="ring"`` the "model"
 axis carries the ring's sequence, and every leaf is gathered whole.  On a
@@ -42,8 +45,9 @@ from repro_torch.kernels import costs
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
+from repro_torch.models import moe as MOE
 from repro_torch.optim import adamw
-from repro_torch.parallel import tp
+from repro_torch.parallel import ep, tp
 from repro_torch.parallel.collectives import group_sum
 from repro_torch.parallel.context import use_mesh_context
 from repro_torch.parallel.mesh_rules import Rules, batch_logical_axes, named_axes
@@ -188,17 +192,24 @@ def _reduce_scatter(g, dim: int, group, rest) -> torch.Tensor:
 
 
 def own_block(rules: Rules, g, shape, axes, batch_axes) -> torch.Tensor:
-    """A gradient (whole, or the "model" block its module computed) summed
-    over the batch ranks (split over ``batch_axes``) and cut to this rank's
-    block of the leaf of ``shape`` and logical ``axes``.  A gradient
-    computed whole is cut to its "model" block first, the same on every
-    "model" rank, so none is summed whole; where the leaf's other split lies
-    along the batch ranks' axes, the sum and the cut are one reduce-scatter
-    (and an all-reduce over the batch axes left)."""
+    """A gradient (whole, or the block its module computed) summed over the
+    batch ranks (split over ``batch_axes``) and cut to this rank's block of
+    the leaf of ``shape`` and logical ``axes``.  A gradient computed whole
+    is cut to its "model" block first, the same on every "model" rank, so
+    none is summed whole.  A gradient that is already this rank's block
+    along another dim (an expert leaf's experts, whose all-to-all brought
+    every token of their group of ranks here) is complete over that dim's
+    axes: it is summed over the batch axes outside them only.  Where the
+    leaf's other split lies along the batch ranks' axes, the sum and the cut
+    are one reduce-scatter (and an all-reduce over the batch axes left)."""
     if tuple(g.shape) == tuple(shape):
         g = cut_over(rules, g, axes, ("model",), shape).contiguous()
-    split = [(d, a) for d, a in enumerate(rules.dim_axes(axes, shape))
-             if a and a != ("model",) and rules.shard_count(a) > 1]
+    dims = rules.dim_axes(axes, shape)
+    owned = {a for d, axs in enumerate(dims) if axs != ("model",) and g.shape[d] != shape[d]
+             for a in axs}
+    batch_axes = [a for a in batch_axes if a not in owned]
+    split = [(d, a) for d, a in enumerate(dims)
+             if a and a != ("model",) and not owned & set(a) and rules.shard_count(a) > 1]
     group = rules.mesh.group(batch_axes)
     if group is not None and len(split) == 1 and set(split[0][1]) <= set(batch_axes):
         d, a = split[0]
@@ -206,7 +217,7 @@ def own_block(rules: Rules, g, shape, axes, batch_axes) -> torch.Tensor:
                                rules.mesh.group([x for x in batch_axes if x not in a]))
     if group is not None:
         dist.all_reduce(g, group=group)
-    others = [a for a in rules.mesh.axis_names if a != "model"]
+    others = [a for a in rules.mesh.axis_names if a != "model" and a not in owned]
     return cut_over(rules, g, axes, others, shape).contiguous()
 
 
@@ -228,10 +239,14 @@ def make_train_step(cfg: ModelConfig, oc: adamw.OptConfig, *,
     param_axes = dict(named_axes(state_logical_axes(cfg)["params"]))
     # where the "model" axis carries the ring's sequence, every module computes whole
     blocks = set() if (impl or cfg.attn_impl) == "ring" else M.tp_leaves(cfg)
-    shapes = {n: tuple(s.shape) for n, s in flatten_with_names(M.param_specs(cfg))}
+    specs = dict(flatten_with_names(M.param_specs(cfg)))
+    shapes = {n: tuple(s.shape) for n, s in specs.items()}
+    experts = M.ep_leaves(cfg) & blocks
 
     def grads_of(params: dict, mb: dict):
         local, batch_axes = shard_batch(rules, mb)
+        if experts:
+            MOE.check_rows(cfg, rules, batch_axes)
         group, shards = rules.mesh.group(batch_axes), rules.shard_count(batch_axes)
         moe_groups = rules.axis_group_size("batch")
         if moe_groups % shards:
@@ -269,8 +284,10 @@ def make_train_step(cfg: ModelConfig, oc: adamw.OptConfig, *,
         nonlocal rules
         if rules is None:
             rules = Rules(make_host_mesh(state["step"].device))
-        # the modules compute on "model" blocks, or all whole: decided once a step
-        on_blocks = bool(blocks) and rules.mesh.group(("model",)) is not None
+        # the modules compute on "model" and expert blocks, or all whole:
+        # decided once a step
+        on_blocks = bool(blocks) and (rules.mesh.group(("model",)) is not None
+                                      or MOE.splits_experts(cfg, rules))
         with use_mesh_context(rules.mesh, rules), \
                 (tp.computing_on_blocks() if on_blocks else contextlib.nullcontext()):
             return _step(state, batch, on_blocks)
@@ -279,8 +296,15 @@ def make_train_step(cfg: ModelConfig, oc: adamw.OptConfig, *,
         params = state["params"]
         if on_blocks:
             others = [a for a in rules.mesh.axis_names if a != "model"]
+
+            def over(n):
+                if n not in experts:
+                    return others
+                ex = ep.expert_axes(rules, specs[n])
+                return [a for a in others if a not in ex]
+
             compute = unflatten_like(params, {
-                n: gather_over(x, others) if n in blocks else full_tensor(x)
+                n: gather_over(x, over(n)) if n in blocks else full_tensor(x)
                 for n, x in flatten_with_names(params)})
         else:
             compute = tree_map(full_tensor, params)

@@ -15,10 +15,12 @@ Inputs: each arch's reduced config (4 layers, d_model 128, 4 / 2 heads of
     port's at (1, 1), step 0's clip norm within rtol 1e-5, and four steps'
     losses within 5e-4, the reference's limit for a step under another
     reduction order (tests/test_elastic.py).
-(b) At (2, 4), one step of each of the other six archs (their MoE, SSM,
+(b) At (2, 4), one step of each of the other six archs (their SSM,
     codebook and image-token modules gathered whole beside the
     tensor-parallel ones; deepseek-v3's MLA, its dense SwiGLU and its MTP
-    block on "model" blocks, tests/test_torch_tp_mla.py), one microbatch,
+    block on "model" blocks, tests/test_torch_tp_mla.py; the MoE experts on
+    their blocks over "data" and "model", moved by all-to-alls,
+    tests/test_torch_ep.py), one microbatch,
     held to ``loss_and_grads`` at one rank with the routing groups of
     (2, 4) (two): the same limits.  deepseek-v3 runs in float64 (the
     parameters the float32 draws, held in float64): its float32 gradients

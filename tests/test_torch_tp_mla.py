@@ -40,11 +40,13 @@ routing groups of a mesh do not change which tokens an expert takes.
     The whole model's serving steps (prefill B8 S32, decode B8 at a cache
     of 64) at (1, 1) unchanged, decode equal to the reference's; elsewhere
     against their itemised account: the walk with the MLA and dense
-    FFN leaves read whole (the set ``tp_leaves`` had before MLA computed on
-    blocks) less (P-1)/P of the products that now split, at each mesh: MLA's
-    head products (every one where the heads split, ``wo``'s alone where
-    they do not), ``flash``'s prefill attention where the heads split, and
-    ``mla_dense``'s SwiGLU.  The MoE experts do not change.
+    FFN leaves read whole (``tp_leaves`` less MLA's and the dense SwiGLU's
+    leaves, as before MLA computed on blocks) less (P-1)/P of the products
+    that now split, at each mesh: MLA's head products (every one where the
+    heads split, ``wo``'s alone where they do not), ``flash``'s prefill
+    attention where the heads split, and ``mla_dense``'s SwiGLU.  The MoE
+    layers compute alike in both walks (on their experts' blocks since they
+    split over the mesh, tests/test_torch_ep.py).
 (d) In the train walks no all-reduce of the gradient reduction carries a
     whole gradient of an MLA or MTP leaf that the rules split over "model";
     where its other split lies along the batch ranks, it is reduce-scattered.
@@ -454,8 +456,10 @@ def spy_reduce_scatter(*a, **kw):
 
 
 def parent_leaves(cfg):
-    # MLA and its dense FFNs read whole: the leaves of the embedding and head only
-    return {n for n in tp_leaves(cfg) if n.startswith(("embed/", "head"))}
+    # MLA and its dense FFNs read whole: the leaves of the embedding, the head
+    # and the MoE layers only
+    moe = tuple(f"seg{i}/ffn/" for i, s in enumerate(M.layer_plan(cfg)) if s.kind.endswith("moe"))
+    return {n for n in tp_leaves(cfg) if n.startswith(("embed/", "head") + moe)}
 
 
 TS.own_block, dist.all_reduce, TS._reduce_scatter = (spy_own_block, spy_all_reduce,
