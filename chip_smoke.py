@@ -27,7 +27,8 @@ Phases, in order; any failure exits non-zero:
    version's time (events) and the bound (``kernels/costs.py``'s formula at
    ``launch/roofline.py``'s rates); among them MLA's: ``flash`` at
    (Dq, Dv) = (192, 128) with 128 heads, and with the 8 heads a rank
-   computes where "model" has 16 ranks, ``flash_decode`` at the absorbed
+   computes where "model" has 16 ranks (and ``ssd`` and ``wkv6`` at the
+   4 of 64 and 2 of 32 heads a rank computes there), ``flash_decode`` at the absorbed
    shape (one kv head for 128 query heads, Dq 576, Dv 512, V a strided view
    of K's rows, the caller's scale), and both at reduced MLA's (48, 32);
    ``flash_decode``'s log-sum-exp (``return_lse``) at every case against
@@ -122,11 +123,15 @@ Phases, in order; any failure exits non-zero:
    restored state keeps the CPU save's chunk hashes bit for bit; (d) on the
    same two CPU ranks at (1, 2), reduced qwen2-0.5b (its cache a kv head a
    rank) and reduced deepseek-v3 (MLA's latent cache 16 positions a rank,
-   its products on 2 of the 4 heads a rank) serve on "model" blocks, each
-   rank's count of products on a block at least the attention's four a
-   layer a step, and snapshot at token 4 (the whole cache, gathered); the
-   card restores each snapshot at (1, 1) and continues with the ranks'
-   tokens, flash_decode once a layer a step;
+   its products on 2 of the 4 heads a rank), reduced zamba2 (Mamba2 on 4 of
+   8 heads a rank, its ssm states those heads; the shared block's cache a
+   kv head a rank) and reduced rwkv6 (2 of 4 heads a rank), and at (2, 1)
+   reduced granite-moe (4 of 8 experts a rank, all-to-alls), serve on
+   blocks, each rank's count of products on a block as the CPU rehearsal
+   counts it (``SERVE_TP_PRODUCTS``), and snapshot at token 4 (the whole
+   cache, gathered); the card restores each snapshot at (1, 1) and
+   continues with the ranks' tokens, flash_decode once an attention layer a
+   step (zamba2's shared block once a group; rwkv6 none);
 13. analysis: (a) phase 2's bounds read as PERF.md's table prints them
    (EXPECTED_BOUNDS); (b) a train step of qwen2-0.5b at full width and 8
    layers on the card under ``launch/hlo_costs.py``'s walk against the dry
@@ -290,16 +295,24 @@ ELASTIC_TOL = 5e-4
 # and reduced deepseek-v3 (MLA's latent on cache_seq: 16 positions a rank;
 # its products on 2 of the 4 heads a rank, its experts' and shared expert's
 # moe_d_ff on half a rank); at (2, 1) over "data", reduced granite-moe (4 of
-# 8 experts a rank, the dispatched slots moved by all-to-alls); B4, prompts of
-# 12, a cache of 32, a snapshot at token 4 and 4 tokens after it
+# 8 experts a rank, the dispatched slots moved by all-to-alls); at (1, 2)
+# reduced zamba2 (its Mamba2 mixers on 4 of 8 heads a rank, their ssm states
+# those heads, the conv windows whole; the shared block's cache a kv head a
+# rank) and reduced rwkv6 (2 of 4 heads a rank, its wkv states those heads);
+# B4, prompts of 12, a cache of 32, a snapshot at token 4 and 4 tokens after it
 SERVE_TP_ARCHS = {"qwen2-0.5b": (1, 2), "deepseek-v3-671b": (1, 2),
-                  "granite-moe-3b-a800m": (2, 1)}
+                  "granite-moe-3b-a800m": (2, 1), "zamba2-1.2b": (1, 2),
+                  "rwkv6-1.6b": (1, 2)}
 SERVE_TP = {"batch": 4, "prompt": 12, "max_seq": 32, "snap_at": 4, "after": 4}
 # each rank's products on a "model" block over the 9 steps, as the CPU
 # rehearsal of 12(d) counts them: the attention's four a layer a step (MLA's
 # wq_b, wk_b, wv_b, wo; GQA's wq, wk, wv, wo), the dense SwiGLU's three, the
-# MoE layers' three expert and three shared-expert products, the logits'
-SERVE_TP_PRODUCTS = {"qwen2-0.5b": 261, "deepseek-v3-671b": 342, "granite-moe-3b-a800m": 0}
+# MoE layers' three expert and three shared-expert products, the logits';
+# Mamba2's in_proj and out_proj on its heads, zamba2's shared_in, RWKV6's
+# time-mix six (wr, wk, wv, wg, the decay LoRA's second, wo) and channel-mix
+# two (zamba2: 4 x 2 + 2 x (1 + 4 + 3) + 1 a step; rwkv6: 4 x 8 + 1)
+SERVE_TP_PRODUCTS = {"qwen2-0.5b": 261, "deepseek-v3-671b": 342, "granite-moe-3b-a800m": 0,
+                     "zamba2-1.2b": 225, "rwkv6-1.6b": 297}
 # the card's continuation against the ranks': phase 4's limit (card and CPU)
 SERVE_TP_LOGIT_TOL = 1e-3
 # deadlines of the child processes, about 3x their wall time on a slow disk
@@ -961,7 +974,8 @@ def _scan_kernels(gen) -> dict:
                 ((2, 128, 3, 32, 16), "float32", False, False),    # tests/test_kernels.py:74
                 ((1, 256, 2, 16, 64), "float32", True, False),
                 ((2, 64, 4, 8, 8), "float32", False, False),
-                ((2, 500, 8, 64, 64), "float32", True, True)],
+                ((2, 500, 8, 64, 64), "float32", True, True),
+                (RANK_SCAN_SHAPES["ssd"], "bfloat16", False, True)],
         "wkv6": [((4, 512, 32, 64), "bfloat16", False, True),      # rwkv6's prefill
                  ((4, 500, 32, 64), "bfloat16", True, True),
                  ((1, 70, 2, 128), "bfloat16", True, True),
@@ -971,7 +985,8 @@ def _scan_kernels(gen) -> dict:
                  ((2, 128, 3, 32), "float32", False, False),       # tests/test_kernels.py:106
                  ((1, 64, 2, 64), "float32", True, False),
                  ((2, 96, 1, 16), "float32", False, False),
-                 ((2, 500, 4, 64), "float32", True, True)],
+                 ((2, 500, 4, 64), "float32", True, True),
+                 (RANK_SCAN_SHAPES["wkv6"], "bfloat16", False, True)],
     }
     out = {}
     for name, (kernel, plain) in kernels.items():
@@ -1013,13 +1028,20 @@ def _scan_kernels(gen) -> dict:
                                source, True, gen),
                   _scan_timing(name, kernel, plain, TRAIN_SCAN_SHAPES[name],
                                f"{source} train forward", f"train-{source.split('-')[0]}",
-                               False, gen)]
+                               False, gen),
+                  _scan_timing(name, kernel, plain, RANK_SCAN_SHAPES[name],
+                               f"{source} prefill, a rank's heads at model 16",
+                               f"{source} over model 16", True, gen)]
         out[name] = dict(max_abs_err=worst, shapes=shapes, **_scan_gradients(name, gen))
     return out
 
 
 # the scans' shapes on the train paths (B8 S128, no state in or out)
 TRAIN_SCAN_SHAPES = {"ssd": (8, 128, 64, 64, 64), "wkv6": (8, 128, 32, 64)}
+# the prefill scans at one rank's heads where "model" has 16 ranks (the
+# production mesh's): zamba2's 4 of 64, rwkv6's 2 of 32; no run of this
+# script launches them, the card being one rank
+RANK_SCAN_SHAPES = {"ssd": (4, 512, 4, 64, 64), "wkv6": (4, 512, 2, 64)}
 
 
 def _scan_timing(name, kernel, plain, shape, label, source, state_out, gen) -> dict:
@@ -2381,7 +2403,7 @@ def _serve_tp_ranks(work: Path, rank: int) -> dict:
     from repro_torch.parallel import ep, tp
     from repro_torch.parallel.mesh_rules import Rules
     from repro_torch.serve.engine import Engine
-    from repro_torch.utils.tree import flatten_with_names
+    from repro_torch.utils.tree import flatten_with_names, tree_map
 
     out = {}
     for arch, shape in SERVE_TP_ARCHS.items():
@@ -2392,7 +2414,10 @@ def _serve_tp_ranks(work: Path, rank: int) -> dict:
         tp.COUNTS["block_products"] = ep.COUNTS["all_to_all"] = 0
         eng.prefill(prompts)
         eng.generate(SERVE_TP["snap_at"])
-        snap = eng.snapshot()
+        # a leaf no rank splits (zamba2's conv windows, rwkv6's token-shift
+        # rows at (1, 2)) is the live cache itself, which decoding goes on
+        # writing: copied before the engine goes on
+        snap = tree_map(torch.clone, eng.snapshot())
         tokens = eng.generate(SERVE_TP["after"])
         counts = [None] * dist.get_world_size()
         dist.all_gather_object(counts, [tp.COUNTS["block_products"], ep.COUNTS["all_to_all"]])
@@ -2648,6 +2673,16 @@ def phase_parallel(work: Path, ranks: "_GlooGroup") -> dict:
             "ring_launches": ring_launches, "serve": serve}
 
 
+def _attention_layers(cfg) -> int:
+    """The layers of ``cfg`` that attend to a cache (zamba2: its shared
+    block, once a group; rwkv6: none)."""
+    from repro_torch.models import blocks as BL
+    from repro_torch.models.model import layer_plan
+
+    return sum(seg.count for seg in layer_plan(cfg)
+               if seg.kind in BL.ATTN_KINDS or seg.kind == "zamba_group")
+
+
 def _serve_tp_card(work: Path, cpu: dict) -> dict:
     """Phase 12(d) on the card: each snapshot the ranks took (at (1, 2) their
     cache blocks on "model": a kv head a rank for qwen2, 16 positions a rank
@@ -2686,7 +2721,7 @@ def _serve_tp_card(work: Path, cpu: dict) -> dict:
         if not same or err > SERVE_TP_LOGIT_TOL * scale:
             raise AssertionError(f"{arch}: the card's continuation differs from the ranks': "
                                  f"{tokens.tolist()} / {ranks['tokens']}, logits {err}")
-        if launched != SERVE_TP["after"] * cfg.num_layers:
+        if launched != SERVE_TP["after"] * _attention_layers(cfg):
             raise AssertionError(f"{arch}: flash_decode launched {launched} times")
         if ranks["block_products"] != [want_products] * 2:
             raise AssertionError(f"{arch}: the ranks computed {ranks['block_products']} "
@@ -2732,6 +2767,8 @@ EXPECTED_BOUNDS = {
     ("ssd", "zamba2-1.2b train forward"): "0.00513",
     ("wkv6", "rwkv6-1.6b prefill"): "0.01315",
     ("wkv6", "rwkv6-1.6b train forward"): "0.00626",
+    ("ssd", "zamba2-1.2b prefill, a rank's heads at model 16"): "0.000866",
+    ("wkv6", "rwkv6-1.6b prefill, a rank's heads at model 16"): "0.000822",
 }
 # (c): the dry run (three cells, their processes started together) and then
 # the roofline, as a user runs them, on the CPU

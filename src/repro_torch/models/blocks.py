@@ -13,10 +13,12 @@ Kinds, as in ``repro/models/blocks.py``:
 MoE) beside its cache entry.
 Decode updates a layer's cache entry in place (the attention caches at the
 device ``t``, the SSM states by copy) and returns it.  Serving over "model"
-blocks passes the attention kinds' entries as this rank's blocks (the
-rules' ``kv_heads_dim`` or ``cache_seq``; ``seq_len`` says the latter);
-zamba2's shared block and every SSM state stay whole over "model", since
-those mixers compute whole.
+blocks passes the attention kinds' entries, zamba2's shared block's among
+them, as this rank's blocks (the rules' ``kv_heads_dim`` or ``cache_seq``;
+``seq_len`` says the latter), and the SSM states ``ssm`` and ``wkv`` as this
+rank's heads (``ssm_heads_dim``) where the mixers compute on them; the
+Mamba2 conv window and RWKV6's token-shift rows stay whole over "model".
+zamba2's ``shared_in`` is then column-parallel over "model" (``_shared_in``).
 """
 from __future__ import annotations
 
@@ -111,6 +113,21 @@ def _ffn(kind, p, cfg: ModelConfig, xn, moe_groups: int, dt, batch_group=None,
     return L.swiglu(p, xn, dt, spec), None
 
 
+def _shared_in(p, cfg: ModelConfig, h, emb0, dt):
+    """zamba2's ``shared_in`` of concat(h, embedding stream), (B,S,2D) ->
+    (B,S,D).  Where the step computes on "model" blocks its product is
+    column-parallel: this rank's D/P output columns of the whole weight
+    (``tp.own_part``), gathered whole for the shared block's norm."""
+    x = torch.cat([h, emb0.to(h.dtype)], dim=-1)
+    r, n = tp.model_rank_size() if tp.on_blocks() else (0, 1)
+    if n == 1 or cfg.d_model % n:
+        return L.linear(p["shared_in"], x, dt)
+    c = cfg.d_model // n
+    w = tp.own_part(p["shared_in"]["w"], 1, [(r * c, c)])
+    tp.COUNTS["block_products"] += 1
+    return tp.gather_from_model(tp.copy_to_model(x).to(dt) @ w.to(dt), -1)
+
+
 def block_full(kind, p, cfg: ModelConfig, h, positions, *, moe_groups=16,
                want_cache=False, emb0=None, shared_p=None, impl=None, batch_group=None):
     """Returns (h, cache_entry | None, aux_loss | None); ``batch_group``:
@@ -158,7 +175,7 @@ def block_full(kind, p, cfg: ModelConfig, h, positions, *, moe_groups=16,
         h, ci, _ = block_full("mamba2", _index(p["mamba"], i), cfg, h, positions,
                               want_cache=want_cache, impl=impl)
         mcaches.append(ci)
-    x_in = L.linear(p["shared_in"], torch.cat([h, emb0.to(h.dtype)], dim=-1), dt)
+    x_in = _shared_in(p, cfg, h, emb0, dt)
     hs, scache, _ = block_full("attn_dense", shared_p, cfg, x_in, positions,
                                want_cache=want_cache, impl=impl)
     h = h + hs
@@ -174,8 +191,9 @@ def block_decode(kind, p, cfg: ModelConfig, h, cache, t, *, emb0=None, shared_p=
     updated in place.  A MoE FFN routes the B tokens of the whole batch as
     one group, as the reference's; ``row_axes``: the mesh axes that split
     them, () where ``h`` holds all of them (``moe.moe_ffn``).
-    ``seq_len``: the whole cache's length where an attention kind's entry is
-    this rank's block of positions (``attention.gqa_decode``)."""
+    ``seq_len``: the whole cache's length where an attention kind's entry
+    (zamba2's shared block's) is this rank's block of positions
+    (``attention.gqa_decode``)."""
     dt = L.torch_dtype(cfg.compute_dtype)
     if kind in ATTN_KINDS:
         xn = L.rms_norm(p["ln1"], h, cfg.norm_eps)
@@ -215,7 +233,8 @@ def block_decode(kind, p, cfg: ModelConfig, h, cache, t, *, emb0=None, shared_p=
     for i in range(cfg.shared_attn_period):
         h, _ = block_decode("mamba2", _index(p["mamba"], i), cfg, h,
                             _index(cache["mamba"], i), t, impl=impl)
-    x_in = L.linear(p["shared_in"], torch.cat([h, emb0.to(h.dtype)], dim=-1), dt)
+    x_in = _shared_in(p, cfg, h, emb0, dt)
     hs, _ = block_decode("attn_dense", shared_p, cfg, x_in,
-                         {"k": cache["shared_k"], "v": cache["shared_v"]}, t, impl=impl)
+                         {"k": cache["shared_k"], "v": cache["shared_v"]}, t, impl=impl,
+                         seq_len=seq_len)
     return h + hs, cache

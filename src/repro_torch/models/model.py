@@ -17,9 +17,9 @@ their own), mamba2 with zamba2's shared-attention groups, rwkv6, and the
 codebook (musicgen) and image-token (llava) inputs; MLA's cache is
 ``{"ckv": (L,B,S,kv_lora_rank + rope)}``.  Serving over a mesh whose
 "model" axis has several ranks computes under ``tp.computing_on_blocks``
-(``serve/engine.py``): the attention segments' cache leaves
-(``serving_blocks``) are then this rank's blocks of the rules (its kv heads,
-or its block of positions), and ``prefill`` / ``decode_step`` return the
+(``serve/engine.py``): the attention caches and the SSM states
+(``serving_blocks``) are then this rank's blocks of the rules (its kv heads
+or its block of positions, its SSM heads), and ``prefill`` / ``decode_step`` return the
 logits made whole over the vocabulary.  Every plan trains: ``loss_fn`` is
 the reference's (the MoE aux loss, the MTP head's loss, the codebooks' mean
 cross entropy, the image-token mask), differentiated with autograd over a
@@ -293,18 +293,31 @@ def tp_leaves(cfg: ModelConfig) -> set:
     the head without codebooks, the attention (GQA or MLA) of the stacked
     segments, their FFNs (the dense SwiGLU, or the MoE layer: its experts'
     ``moe_d_ff``, DeepSeek's shared expert; the router has no "model" dim),
-    and the MTP block's attention and SwiGLU.  Those modules hold each
-    weight to its spec through ``tp.block_dim`` (``tp.vocab_start``,
-    ``ep.expert_block``): the whole leaf where the rules do not split it
-    over "model", else this rank's block.  The experts of ``ep_leaves`` are
-    also this rank's block over their expert axes.  Every other module (the
-    SSM mixers, codebooks, zamba2's shared block) reads its leaves whole."""
+    the MTP block's attention and SwiGLU, zamba2's shared block's, Mamba2's
+    ``out_proj`` (in a zamba group or a segment of its own), and RWKV6's
+    time-mix ``wr``, ``wk``, ``wv``, ``wg``, ``wo`` and channel-mix ``wk``,
+    ``wv``.  Those modules hold each weight to its spec through
+    ``tp.block_dim`` (``tp.vocab_start``, ``ep.expert_block``): the whole
+    leaf where the rules do not split it over "model", else this rank's
+    block.  The experts of ``ep_leaves`` are also this rank's block over
+    their expert axes.  Every other leaf (codebooks, norms, Mamba2's fused
+    ``in_proj`` and conv, whose rules' blocks are not a rank's heads, the
+    RWKV6 LoRAs and decay) is read whole; the SSM mixers slice the parts of
+    their heads from it (``tp.own_part``)."""
     prefixes = []
     if not cfg.num_codebooks:
         prefixes += ["embed/", "head"]
     for i, seg in enumerate(layer_plan(cfg)):
         if seg.kind in BL.ATTN_KINDS:
             prefixes += [f"seg{i}/attn/", f"seg{i}/ffn/"]
+        elif seg.kind in ("mamba2", "zamba_group"):
+            prefixes.append(f"seg{i}/{'mamba/' if seg.kind == 'zamba_group' else ''}"
+                            "mixer/out_proj/")
+        elif seg.kind == "rwkv6":
+            prefixes += [f"seg{i}/tmix/{n}/" for n in ("wr", "wk", "wv", "wg", "wo")]
+            prefixes += [f"seg{i}/cmix/{n}/" for n in ("wk", "wv")]
+    if cfg.shared_attn_period:
+        prefixes += ["shared_attn/attn/", "shared_attn/ffn/"]
     if cfg.mtp_depth:
         prefixes += ["mtp/block/attn/", "mtp/block/ffn/"]
     return {n for n, _ in flatten_with_names(param_specs(cfg)) if n.startswith(tuple(prefixes))}
@@ -510,25 +523,32 @@ def cache_logical_axes(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
 
 def serving_blocks(cfg: ModelConfig) -> set:
     """The cache leaves that serving over "model" blocks holds as this
-    rank's block of the rules' layout (``kv_heads_dim``, else ``cache_seq``,
-    on "model"): each attention segment's ``k`` and ``v`` (GQA) or ``ckv``
-    (MLA), whose modules compute on blocks.  Every other leaf (``t``,
-    zamba2's shared block's cache and every SSM state, whose mixers compute
-    whole) is whole over "model"; a rank holds its rows of it.  The MoE
-    layers keep no cache: their experts compute on blocks (``tp_leaves``,
-    ``ep_leaves``) on every rank's rows, routed as one group."""
-    out = set()
-    for i, seg in enumerate(layer_plan(cfg)):
-        if seg.kind in BL.ATTN_KINDS:
-            out |= {f"seg{i}/{n}" for n in (("ckv",) if seg.kind.startswith("mla")
-                                            else ("k", "v"))}
-    return out
+    rank's block of the rules' layout: each attention segment's ``k`` and
+    ``v`` (GQA) or ``ckv`` (MLA) and zamba2's ``shared_k`` and ``shared_v``
+    (``kv_heads_dim``, else ``cache_seq``, on "model"), and the SSM states
+    ``ssm`` (Mamba2's, in a zamba group or not) and ``wkv`` (RWKV6's) on
+    ``ssm_heads_dim``, whose mixers compute on this rank's heads where the
+    rules split them.  Every other leaf (``t``, Mamba2's conv window, whose
+    rules' block of ``ssm_inner`` channels is not a rank's heads, RWKV6's
+    token-shift rows) is whole over "model"; a rank holds its rows of it.
+    The MoE layers keep no cache: their experts compute on blocks
+    (``tp_leaves``, ``ep_leaves``) on every rank's rows, routed as one
+    group."""
+    names = {"attn_dense": ("k", "v"), "attn_moe": ("k", "v"), "mla_dense": ("ckv",),
+             "mla_moe": ("ckv",), "mamba2": ("ssm",), "rwkv6": ("wkv",),
+             "zamba_group": ("mamba/ssm", "shared_k", "shared_v")}
+    return {f"seg{i}/{n}" for i, seg in enumerate(layer_plan(cfg)) for n in names[seg.kind]}
+
+
+# the leaves of a segment's cache entry indexed by position
+_POSITIONS = ("k", "v", "ckv", "shared_k", "shared_v")
 
 
 def _seq_lens(cfg: ModelConfig, max_seq) -> dict:
-    """{segment index: ``max_seq``} for each attention segment whose cache
-    the ambient rules split over "model" by position (``cache_seq``), where
-    the step computes on blocks; empty otherwise."""
+    """{segment index: ``max_seq``} for each segment whose attention cache
+    (zamba2's shared block's in a zamba group) the ambient rules split over
+    "model" by position (``cache_seq``), where the step computes on blocks;
+    empty otherwise."""
     rules = current_rules()
     if not tp.on_blocks() or rules is None:
         return {}
@@ -536,8 +556,10 @@ def _seq_lens(cfg: ModelConfig, max_seq) -> dict:
         raise ValueError("a decode step on 'model' blocks needs the whole cache's max_seq")
     out = {}
     for i, seg in enumerate(layer_plan(cfg)):
-        if seg.kind in BL.ATTN_KINDS:
-            shape, _, axes = next(iter(BL.cache_entry_spec(cfg, seg.kind, 1, max_seq).values()))
+        entry = BL.cache_entry_spec(cfg, seg.kind, 1, max_seq)
+        keys = [k for k in _POSITIONS if k in entry]
+        if keys:
+            shape, _, axes = entry[keys[0]]
             if tp.block_dims(axes, shape) == [1]:
                 out[i] = max_seq
     return out
@@ -624,7 +646,8 @@ def prefill(params, cfg: ModelConfig, batch: dict, max_seq: int, *, impl=None,
         for j, entry in enumerate(entries):
             if i in seq_lens:                       # this rank's block of positions
                 start, n = tp.seq_block(max_seq)
-                entry = tree_map(lambda x: x[:, start:start + n], entry)
+                entry = {k: x[:, start:start + n] if k in _POSITIONS else x
+                         for k, x in entry.items()}
             tree_map(lambda dst, src, j=j: _place(dst[j], src), full[f"seg{i}"], entry)
     full["t"] = torch.tensor(S, dtype=torch.int32, device=tokens.device)
     logits = _whole_logits(params, cfg, h[:, -1:])[:, 0]   # h already final-normed

@@ -18,7 +18,20 @@ Megatron's pair of operations around each split product:
 
 so that an activation every "model" rank holds whole has the same, whole
 gradient on every rank, and a leaf every rank holds whole (a norm's scale, a
-module computed whole) has the same gradient on every rank.
+module computed whole) has the same gradient on every rank.  Two rules
+follow from that for a module that computes on this rank's share of its
+heads or channels:
+
+  ``sum_over_model``    a statistic summed over the split channels (Mamba2's
+                        gated RMSNorm over all of its inner width) is
+                        all-reduced in both directions: every rank uses the
+                        sum in its own channels
+  ``own_part``          a whole tensor that a rank reads only in part (a
+                        whole leaf sliced to its heads, the fused in-
+                        projection's columns of its heads) enters through
+                        ``copy_to_model``, so its partial gradients are
+                        summed: the step cuts a whole-shaped gradient to its
+                        "model" block without summing it
 ``vocab_parallel_embed`` and ``vocab_parallel_ce`` are the embedding and the
 cross entropy on a block of the vocabulary; ``gather_logits`` makes a block
 of the logits whole for serving's argmax.
@@ -46,7 +59,8 @@ rules: the whole leaf, or this rank's block of it.  Serving decides it the
 same way (``serve/engine.py``).  Elsewhere (the card, one rank) they take
 the plain path.  ``COUNTS["block_products"]``
 counts the products that ran on a block (``layers.linear``, MLA's per-head
-up-projections, the experts' and the logits).
+up-projections, the experts', the logits, and the SSM mixers' and zamba2's
+``shared_in``'s on this rank's share of a whole weight).
 """
 from __future__ import annotations
 
@@ -202,6 +216,28 @@ def copy_to_model(x: torch.Tensor) -> torch.Tensor:
 def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
     group = model_group()
     return x if group is None else _Reduce.apply(x, group)
+
+
+def sum_over_model(x: torch.Tensor) -> torch.Tensor:
+    """``x``, this rank's partial sum of a statistic, summed over "model" in
+    both directions: the forward all-reduces the partial sums, and, since
+    every rank uses the sum in its own share of the computation (a norm's
+    statistic over channels split over "model"), the backward all-reduces
+    the gradient too.  ``reduce_from_model`` alone would leave each rank's
+    gradient its own share."""
+    return reduce_from_model(copy_to_model(x))
+
+
+def own_part(w: torch.Tensor, dim: int, parts) -> torch.Tensor:
+    """The ``parts`` ((start, length) along ``dim``, concatenated in order)
+    of ``w``, a tensor every "model" rank holds whole (a whole leaf, or an
+    activation computed alike on every rank) and reads only in part for its
+    share of a split computation.  ``w`` enters through ``copy_to_model``,
+    so each rank's partial gradient of it is summed over "model": the
+    gradient reduction cuts a whole-shaped gradient to its block without
+    summing it."""
+    w = copy_to_model(w)
+    return torch.cat([w.narrow(dim, a, n) for a, n in parts], dim=dim)
 
 
 def gather_from_model(x: torch.Tensor, dim: int) -> torch.Tensor:

@@ -20,8 +20,8 @@ experts also their block over their expert axes), and every other leaf
 whole (``serving_params``).  Decode routes the whole batch as one group,
 as the reference's does (``moe.moe_ffn``'s ``row_axes``).  The cache is
 then the rules' blocks from prefill on (``models.model.serving_blocks``:
-the attention caches on ``kv_heads_dim`` or ``cache_seq``; every other
-leaf rows only).  A snapshot
+the attention caches on ``kv_heads_dim`` or ``cache_seq``, the SSM
+states on ``ssm_heads_dim``; every other leaf rows only).  A snapshot
 holds the whole cache (``core.virtualization.whole_tree``), with the
 one-rank engine's paths, shapes and dtypes, and ``restore`` cuts it to this
 engine's blocks, so a snapshot taken on one mesh restores on any other.
@@ -249,7 +249,9 @@ class Engine:
     def snapshot(self) -> dict:
         """The generation state, whole: the cache with the one-rank engine's
         paths, shapes and dtypes (gathered from every rank's blocks: every
-        rank calls) and the last tokens of every row."""
+        rank calls) and the last tokens of every row.  A leaf that no rank
+        splits is the live cache's own tensor, which the next decode step
+        writes in place: save or copy the snapshot before decoding on."""
         cache = whole_tree(self.cache, self.cache_axes, self.rules, self.cache_shapes,
                            self.blocks)
         return {"cache": cache, "last_tokens": self.whole_rows(self.last_tokens)}

@@ -12,8 +12,9 @@ Over a mesh of several ranks (``core.virtualization.place_tree`` lays the
 state out; a leaf the rules split is a ``DTensor``), each rank takes its
 rows of the global batch by the batch's placement.  The leaves of the
 tensor-parallel modules (``models.model.tp_leaves``: the embedding, the
-head, GQA and MLA attention, the dense SwiGLU, the MoE layers and the MTP
-block's) are gathered over their non-"model" axes only, the MoE experts
+head, GQA and MLA attention, the dense SwiGLU, the MoE layers, the MTP
+block's, zamba2's shared block's, Mamba2's ``out_proj`` and RWKV6's heads'
+and channel-mix products) are gathered over their non-"model" axes only, the MoE experts
 (``models.model.ep_leaves``) over the axes other than "model" and their
 expert axes, and those modules compute on this rank's blocks of them
 (``parallel/tp.py``, ``parallel/ep.py``; the step decides this once, where

@@ -15,18 +15,20 @@ Inputs: each arch's reduced config (4 layers, d_model 128, 4 / 2 heads of
     port's at (1, 1), step 0's clip norm within rtol 1e-5, and four steps'
     losses within 5e-4, the reference's limit for a step under another
     reduction order (tests/test_elastic.py).
-(b) At (2, 4), one step of each of the other six archs (their SSM,
-    codebook and image-token modules gathered whole beside the
-    tensor-parallel ones; deepseek-v3's MLA, its dense SwiGLU and its MTP
+(b) At (2, 4), one step of each of the other six archs (their codebook
+    and image-token modules gathered whole beside the tensor-parallel ones;
+    the SSM mixers and zamba2's shared block on "model" blocks,
+    tests/test_torch_tp_ssm.py; deepseek-v3's MLA, its dense SwiGLU and its MTP
     block on "model" blocks, tests/test_torch_tp_mla.py; the MoE experts on
     their blocks over "data" and "model", moved by all-to-alls,
     tests/test_torch_ep.py), one microbatch,
     held to ``loss_and_grads`` at one rank with the routing groups of
-    (2, 4) (two): the same limits.  deepseek-v3 runs in float64 (the
-    parameters the float32 draws, held in float64): its float32 gradients
-    lie up to 5.2e-4 of a leaf's largest |gradient| from float64's at one
-    rank (tests/test_torch_tp_mla.py), so the order of the sums over the
-    heads' blocks alone moves them past the limit.
+    (2, 4) (two): the same limits.  deepseek-v3 and rwkv6 run in float64
+    (the parameters the float32 draws, held in float64): their float32
+    gradients lie up to 5.2e-4 (deepseek-v3) and past 1e-5 (rwkv6) of a
+    leaf's largest |gradient| from float64's at one rank
+    (tests/test_torch_tp_mla.py, tests/test_torch_tp_ssm.py), so the order
+    of the sums over the heads' blocks alone moves them past the limit.
 (c) The first loss at (2, 4) of each arch of (a) within 1e-5 of the
     reference's one-device ``loss_fn`` (``impl="xla"``) on the same params.
 (d) The dry run's FLOPs a rank (``launch/dryrun.walk_cell``, a fake group)
@@ -91,7 +93,7 @@ FLOPS_RATIO = {"(2, 4)": 1.10, "(4, 2)": 1.10, "(1, 8)": 2.0}
 SERVE_KINDS = [("prefill", 32), ("decode", 64)]        # (kind, seq), B8
 SERVE_RATIO = 1.10
 # held in float64 in (b): float32 is not good to GRAD_TOL for them at one rank
-FLOAT64 = ["deepseek-v3-671b"]
+FLOAT64 = ["deepseek-v3-671b", "rwkv6-1.6b"]
 
 
 def config_of(arch):
